@@ -48,8 +48,10 @@ from sieve_torch.kernels.cuda_mark import (
 from sieve_torch.segments import plan_segments
 from sieve_torch.seed import seed_primes
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
-INT32_LANES_PER_SM = 64          # Hopper: 64 INT32 units per SM
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM published device memory rate
+INT32_LANES_PER_SM = 64          # Hopper: 32-bit add, shift, logic per SM per clock
+POPC_LANES_PER_SM = 16           # Hopper: population counts per SM per clock
+SPIN_CYCLES = 2_000_000          # ~1 ms at the H100's clock
 KINDS = ("none", "twins", "cousins")
 # (packing, lo, hi, seed limit or None for isqrt(hi - 1), env) of the
 # kernel-vs-plain segments: a multi-tile and an in-tile sliver segment per
@@ -116,12 +118,11 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
-    info = build.build_all(force=True)
-    for name, i in info.items():
-        log("build", f"{name}: nvcc {i['seconds']:.1f} s -> {i['path']}")
-        for line in i["log"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log("build", "  " + line.strip())
+    info = build.build(force=True)
+    log("build", f"fused_mark: nvcc {info['seconds']:.1f} s -> {info['path']}")
+    for line in info["log"].splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            log("build", "  " + line.strip())
 
 
 def _segment(packing, lo, hi, limit, gap):
@@ -236,28 +237,59 @@ def phase_main_path(device="cuda", sizes=None) -> tuple[int, int]:
     return launches, expected
 
 
-def _bound(seg, x, dev: dict, need_bits: bool) -> tuple[float, str, float, float]:
-    """Least time for the work of one segment: integer operations (one
-    per (word, live A/B/C spec) and one per (row, live D spec)) over the
-    INT32 peak, against bytes (inputs read once, outputs written once)
-    over the memory rate."""
+def _hits(table: tuple, nbits: int) -> int:
+    """Bits in [0, nbits) that the live specs of one group table clear:
+    spec (m, r) hits r, r + m, ... below nbits."""
+    m, rk, act = table[0].ravel(), table[1].ravel(), table[-1].ravel()
+    live = act != 0
+    m = m[live].astype(np.int64)
+    r = rk[live].astype(np.int64) % m
+    return int(np.maximum(0, -(-(nbits - r) // m)).sum())
+
+
+def _work(seg, shift: int) -> dict:
+    """The integer work the function needs on this segment's data,
+    whatever the kernel does: one pattern AND per (word, live group-A
+    spec); one clear per hit of groups B, C and D; one AND or OR per flat
+    clear and correction word; per word one popcount, and with a pair
+    count two shifts, an OR, two ANDs and a second popcount."""
+    W = -(-seg.nbits // 32)
     c = spec_counts(seg)
-    ops = seg.Wpad * (c["A"] + c["B"] + c["C"]) + (seg.Wpad // 128) * c["D"]
-    peak = dev["sms"] * INT32_LANES_PER_SM * dev["max_sm_mhz"] * 1e6
-    nbytes = 4 * (x.buf.numel() + 8 * (seg.Wpad // 16384) + 4
-                  + (seg.Wpad if need_bits else 0))
-    t_ops, t_bytes = ops / peak, nbytes / HBM_BYTES_PER_S
+    hits = {g: _hits(t, seg.nbits) for g, t in (("B", seg.B), ("C", seg.C), ("D", seg.D))}
+    alu = (W * c["A"] + sum(hits.values()) + c["flat_words"] + c["corr_words"]
+           + (5 * W if shift else 0))
+    return {"words": W, "A_ops": W * c["A"], "hits": hits, "alu": alu,
+            "popc": W * (2 if shift else 1)}
+
+
+def _bound(seg, x, dev: dict, shift: int, need_bits: bool):
+    """Least time for the work of one segment: the larger of the integer
+    operations over their peak (32-bit ALU ops and population counts on
+    their own units, each at SMs x lanes x max SM clock) and the bytes
+    (inputs read once, the outputs written once) over the memory rate.
+    Returns (ms, bound_by, work, alu_peak, popc_peak)."""
+    work = _work(seg, shift)
+    clock = dev["max_sm_mhz"] * 1e6
+    alu_peak = dev["sms"] * INT32_LANES_PER_SM * clock
+    popc_peak = dev["sms"] * POPC_LANES_PER_SM * clock
+    t_ops = max(work["alu"] / alu_peak, work["popc"] / popc_peak)
+    nbytes = 4 * (x.buf.numel() + 4 + (seg.Wpad if need_bits else 0))
+    t_bytes = nbytes / HBM_BYTES_PER_S
     if t_ops >= t_bytes:
-        return t_ops * 1e3, "operations", ops, peak
-    return t_bytes * 1e3, "bytes", ops, peak
+        return t_ops * 1e3, "operations", work, alu_peak, popc_peak
+    return t_bytes * 1e3, "bytes", work, alu_peak, popc_peak
 
 
 def _event_ms(fn, reps: int) -> list[float]:
-    """Device time of fn() by CUDA events, one sample per call."""
+    """Device time of fn() by CUDA events, one sample per call. A spin
+    kernel of about 1 ms runs ahead of the start event, so the host has
+    queued fn's launch before the window opens and its enqueue cost stays
+    outside the window."""
     ms = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -301,19 +333,25 @@ def phase_times(dev: dict, reps: int = 20) -> dict:
         if not ok:
             raise AssertionError(f"timed segment, need_bits={need_bits}: "
                                  "kernel and plain version differ")
-        bound_ms, bound_by, ops, peak = _bound(seg, x, dev, need_bits)
+        bound_ms, bound_by, work, alu_peak, popc_peak = _bound(
+            seg, x, dev, pairs.PAIR_SHIFT[kind], need_bits)
         label = "need_bits" if need_bits else "counting"
         plain_ms = min(t for t, _ in plain)
+        med = statistics.median(ms)
         log("times", f"{dev['card']}: n=1e9 odds segment ({label}), Wpad={seg.Wpad}, "
-                     f"kernel median {statistics.median(ms):.4f} ms (min {min(ms):.4f}, "
+                     f"kernel median {med:.4f} ms (min {min(ms):.4f}, "
                      f"max {max(ms):.4f}, {reps} runs), plain version {plain_ms:.1f} ms, "
-                     f"bound {bound_ms:.4f} ms by {bound_by}")
+                     f"bound {bound_ms:.4f} ms by {bound_by} ({med / bound_ms:.1f}x)")
         if not need_bits:
-            out = {"ms": statistics.median(ms), "plain_ms": plain_ms,
+            out = {"ms": med, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by}
-    log("times", f"bound: {ops:.4e} int32 ops over {peak:.4e} ops/s = {dev['sms']} "
-                 f"SMs x {INT32_LANES_PER_SM} INT32 lanes x {dev['max_sm_mhz']:.0f} MHz "
-                 f"max SM clock, against bytes over {HBM_BYTES_PER_S:.3e} B/s")
+    log("times", f"bound: {work['words']} words, {spec_counts(seg)}; group A "
+                 f"{work['A_ops']} pattern ANDs, hits {work['hits']}; "
+                 f"{work['alu']:.4e} 32-bit ALU ops over {alu_peak:.4e} ops/s "
+                 f"({dev['sms']} SMs x {INT32_LANES_PER_SM} lanes x "
+                 f"{dev['max_sm_mhz']:.0f} MHz max SM clock), {work['popc']:.4e} "
+                 f"popcounts over {popc_peak:.4e} /s ({POPC_LANES_PER_SM} lanes); "
+                 f"against bytes over {HBM_BYTES_PER_S:.3e} B/s")
     log("times", "library: no single PyTorch call computes this function")
     return out
 

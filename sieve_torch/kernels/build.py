@@ -1,11 +1,11 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernel.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with
+``csrc/fused_mark.cu`` is compiled by ``nvcc`` into a shared library with
 a plain C interface and loaded with ``ctypes`` — no PyTorch headers, so a
-build takes seconds. Libraries go to ``sieve_torch/_build/`` named by a
-hash of the sources and flags, so an edit rebuilds and an unchanged tree
+build takes seconds. The library goes to ``sieve_torch/_build/`` named by
+a hash of the source and flags, so an edit rebuilds and an unchanged tree
 reuses what is there. Nothing is built at import: the first call that
-needs a kernel builds it, and a failed build raises.
+needs the kernel builds it, and a failed build raises.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import time
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
-CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_mark.cu"
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -29,23 +29,20 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# name -> (C entry point, argtypes)
-SIGNATURES = {
-    "fused_mark": ("sieve_fused_mark", [
-        _P, _P, _P,             # group A: m, rK, act
-        _P, _P, _P, _I,         # group B + count
-        _P, _P, _P, _I,         # group C + count
-        _P, _P, _P, _I,         # group D + count
-        _P, _P, _P,             # corrections: idx, mask, per-tile cursors
-        _P, _P, _P,             # flat clears: idx, mask, per-tile cursors
-        _I, _I, ctypes.c_uint, _I,  # G, nbits, pair_mask, shift
-        _P, _P, _P,             # words_out (nullable), partials, result
-        _I, _P,                 # device, stream
-    ]),
-}
+ARGTYPES = [
+    _P, _P, _P,                 # group A: m, rK, act
+    _P, _P, _P, _I,             # group B + count
+    _P, _P, _P, _I,             # group C + count
+    _P, _P, _P, _I,             # group D + count
+    _P, _P, _P,                 # corrections: idx, mask, per-tile cursors
+    _P, _P, _P,                 # flat clears: idx, mask, per-tile cursors
+    _I, _I, ctypes.c_uint, _I,  # G, nbits, pair_mask, shift
+    _P, _P, _P,                 # words_out (nullable), partials, result
+    _I, _P,                     # device, stream
+]
 
 _lock = threading.Lock()
-_loaded: dict[str, ctypes.CDLL] = {}
+_lib: ctypes.CDLL | None = None
 
 
 def nvcc() -> str:
@@ -60,67 +57,45 @@ def nvcc() -> str:
         if os.path.isfile(c) and os.access(c, os.X_OK):
             return c
     raise RuntimeError(
-        "nvcc not found (set CUDA_HOME): the CUDA kernels build on first use"
+        "nvcc not found (set CUDA_HOME): the CUDA kernel builds on first use"
     )
 
 
-def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: named by a hash of every file in
-    csrc/ and of the flags."""
+def library_path() -> Path:
+    """Where the kernel builds to: named by a hash of the source and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(CSRC.iterdir()):
-        if f.suffix in (".cu", ".cuh", ".h"):
-            h.update(f.name.encode())
-            h.update(f.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    h.update(SOURCE.read_bytes())
+    return BUILD_DIR / f"libfused_mark-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str) -> tuple[subprocess.Popen, Path, Path]:
-    out = library_path(name)
+def build(force: bool = False) -> dict:
+    """Compile the kernel unless its library exists (or ``force``).
+    Returns {"path", "seconds", "log", "cached"}; raises if nvcc fails."""
+    out = library_path()
+    if out.exists() and not force:
+        return {"path": str(out), "seconds": 0.0, "log": "", "cached": True}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    return proc, tmp, out
-
-
-def build_all(names=None, force: bool = False) -> dict[str, dict]:
-    """Compile the named kernels (default: all), one nvcc per source, all
-    started together. Returns {name: {"path", "seconds", "log", "cached"}};
-    raises on the first failed build."""
-    names = list(SIGNATURES) if names is None else list(names)
     t0 = time.perf_counter()
-    info, running = {}, []
-    for name in names:
-        out = library_path(name)
-        if out.exists() and not force:
-            info[name] = {"path": str(out), "seconds": 0.0, "log": "", "cached": True}
-        else:
-            running.append((name, *_start(name)))
-    for name, proc, tmp, out in running:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
-        os.replace(tmp, out)
-        info[name] = {"path": str(out), "seconds": time.perf_counter() - t0,
-                      "log": log, "cached": False}
-    return info
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n{proc.stdout}")
+    os.replace(tmp, out)
+    return {"path": str(out), "seconds": time.perf_counter() - t0,
+            "log": proc.stdout, "cached": False}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+def load() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
     with _lock:
-        lib = _loaded.get(name)
-        if lib is None:
-            path = build_all([name])[name]["path"]
-            lib = ctypes.CDLL(path)
-            entry, argtypes = SIGNATURES[name]
-            fn = getattr(lib, entry)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        if _lib is None:
+            lib = ctypes.CDLL(build()["path"])
+            lib.sieve_fused_mark.argtypes = ARGTYPES
+            lib.sieve_fused_mark.restype = ctypes.c_int
             lib.sieve_cuda_error_string.argtypes = [ctypes.c_int]
             lib.sieve_cuda_error_string.restype = ctypes.c_char_p
-            _loaded[name] = lib
-        return lib
+            _lib = lib
+        return _lib

@@ -12,9 +12,11 @@
 //
 // What bounds it. The inputs are a few spec tables and the outputs a few
 // scalars (plus the words with NEED_BITS), so it moves almost no bytes: it
-// is bound by integer operations. Groups A-C cost one hit computation per
-// (word, spec), (SA+SB+SC) per word; group D one per (row, live spec),
-// ND*128 per 128-word row.
+// is bound by integer operations. The function needs one clear per hit:
+// 32*Wpad/m for a spec of stride m (one pattern AND per word for group
+// A), plus the popcounts and pair splices per word. This kernel does
+// more: groups A-C test every (word, spec), (SA+SB+SC) per word; group D
+// walks its hits, but pays one % per (tile, live spec).
 //
 // What the design does about it.
 //  - One block per (128 x 128)-word tile, the tile's 16,384 words in 64 KB
@@ -34,6 +36,8 @@
 //    shared-memory atomicAnd.
 //  - Flat clears (atomicAnd) and corrections (atomicOr) walk only the
 //    tile's own entries, through the per-tile cursors.
+
+#include <atomic>
 
 #include <cuda_runtime.h>
 
@@ -225,14 +229,23 @@ combine_kernel(const unsigned* __restrict__ partials, int G, int nbits,
   }
 }
 
+constexpr int kMaxDevices = 64;
+
+// The 64 KB shared-memory opt-in is set once per (variant, device); a
+// repeated set from a racing caller is harmless.
 template <bool NEED_BITS>
 cudaError_t launch_mark(const Tables& tb, int G, unsigned* words_out,
-                        unsigned* partials, cudaStream_t stream) {
+                        unsigned* partials, int device, cudaStream_t stream) {
+  static std::atomic<bool> smem_set[kMaxDevices];
   const size_t smem = kTileWords * sizeof(unsigned);
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_mark_kernel<NEED_BITS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!smem_set[device].load(std::memory_order_acquire)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_mark_kernel<NEED_BITS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    smem_set[device].store(true, std::memory_order_release);
+  }
   fused_mark_kernel<NEED_BITS><<<G, kThreads, smem, stream>>>(tb, words_out,
                                                                partials);
   return cudaGetLastError();
@@ -262,8 +275,8 @@ int sieve_fused_mark(
                   corr_idx, corr_mask, coff, flat_idx, flat_mask, foff,
                   nbits, pair_mask, shift};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  e = words_out ? launch_mark<true>(tb, G, words_out, partials, s)
-                : launch_mark<false>(tb, G, words_out, partials, s);
+  e = words_out ? launch_mark<true>(tb, G, words_out, partials, device, s)
+                : launch_mark<false>(tb, G, words_out, partials, device, s);
   if (e != cudaSuccess) return e;
   combine_kernel<<<1, kThreads, 0, s>>>(partials, G, nbits, pair_mask, shift,
                                         result);

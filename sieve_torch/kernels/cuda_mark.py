@@ -456,7 +456,7 @@ def launch_fused(x: FusedInputs, twin_kind: int, need_bits: bool = False):
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"launch_fused: inputs on {dev}, not a CUDA device")
-    lib = build.load("fused_mark")
+    lib = build.load()
     G = x.Wpad // TILE_WORDS
     partials = torch.empty(8 * G, dtype=torch.int32, device=dev)
     result = torch.empty(4, dtype=torch.int32, device=dev)
