@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout, holds it
-bit for bit against its plain PyTorch version on the card, drives the
-port's counting run through its command line at full size, checks that
-every device segment went through the kernel, and times the kernel. Each
-phase prints its lines; any failure raises, so the script exits non-zero
-and prints no result. The last three lines are the kernel table (JSON),
-the card's name and power limit, and the result line:
+Builds the port's CUDA kernels (fused and split marking) from the sources
+in this checkout, holds each bit for bit against its plain PyTorch version
+on the card, drives the port's counting run and its rounds path (the
+n=1e11 streaming run, a split-mode checkpointed run and its resume) through
+their entry points at full size, checks that every device segment went
+through the kernel of its mode, and times the kernels and the split
+postlude. Each phase prints its lines; any failure raises, so the script
+exits non-zero and prints no result. The last three lines are the kernel
+table (JSON), the card's name and power limit, and the result line:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
@@ -27,6 +29,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -38,13 +41,22 @@ from sieve_torch.config import SieveConfig
 from sieve_torch.coordinator import run_local
 from sieve_torch.kernels import build, pairs
 from sieve_torch.kernels.cuda_mark import (
+    _SPLIT_ARRAYS,
+    CudaChain,
     fused_inputs,
     launch_fused,
+    launch_split,
+    mark_cuda_split,
     mark_fused,
     mark_fused_reference,
+    mark_split,
+    mark_split_reference,
     prepare_cuda,
     spec_counts,
+    split_reduce,
 )
+from sieve_torch.kernels.reduce import _postlude
+from sieve_torch.parallel.mesh import run_mesh
 from sieve_torch.segments import plan_segments
 from sieve_torch.seed import seed_primes
 
@@ -71,8 +83,11 @@ CHECK_SEGMENTS = [
     # the last segment of the main path's n=1e10 odds run in 5 segments
     ("odds", 8_000_000_000, 10**10 + 1, 10**5, {}),
 ]
-PI = {10**8: 5_761_455, 10**9: 50_847_534, 10**10: 455_052_511}
-TWINS = {10**9: 3_424_506, 10**10: 27_412_679}
+PI = {10**8: 5_761_455, 10**9: 50_847_534, 10**10: 455_052_511,
+      10**11: 4_118_054_813}
+TWINS = {10**9: 3_424_506, 10**10: 27_412_679, 10**11: 224_376_048}
+PACKINGS = ("plain", "odds", "wheel30")
+COUNT_KINDS = ("primes", "twins", "cousins")
 
 
 def log(phase: str, msg: str) -> None:
@@ -119,9 +134,11 @@ def phase_device() -> dict:
 
 def phase_build() -> None:
     info = build.build(force=True)
-    log("build", f"fused_mark: nvcc {info['seconds']:.1f} s -> {info['path']}")
+    log("build", f"fused_mark.cu (fused_mark, split_mark): nvcc "
+                 f"{info['seconds']:.1f} s -> {info['path']}")
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if ("Compiling entry" in line or "registers" in line or "spill" in line
+                or "smem" in line):
             log("build", "  " + line.strip())
 
 
@@ -136,11 +153,18 @@ def _kind(packing, gapname):
     return (pairs.TWIN_KIND if gapname == "twins" else pairs.COUSIN_KIND)[packing]
 
 
-def phase_kernel_vs_plain(device="cuda", segments=CHECK_SEGMENTS) -> int:
-    """Kernel against its plain version on the same tables: the four
-    scalars without and with need_bits, and the need_bits words bit for
-    bit. Returns the largest absolute difference seen (0 when exact)."""
-    worst, failures = 0, []
+def _as_u32(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy().view(np.uint32)
+
+
+def phase_kernel_vs_plain(device="cuda", segments=CHECK_SEGMENTS) -> tuple[int, int]:
+    """Each kernel against its plain version on the same tables. Fused: the
+    four scalars without and with need_bits, and the need_bits words bit
+    for bit. Split: the raw words bit for bit (padding included), and the
+    split scalars (kernel + postlude) against the fused ones for every
+    kind. Returns the largest absolute difference seen per kernel (0 when
+    exact)."""
+    worst, worst_split, failures = 0, 0, []
     for packing, lo, hi, limit, env in segments:
         for gapname in KINDS:
             with env_set(env):
@@ -156,15 +180,27 @@ def phase_kernel_vs_plain(device="cuda", segments=CHECK_SEGMENTS) -> int:
                 int(np.abs(got_w.astype(np.int64) - plain_w.astype(np.int64)).max()),
             )
             worst = max(worst, diff)
+            split_s = mark_cuda_split(seg, kind, device=device)
+            split_diff = max(abs(a - b) for a, b in zip(split_s, got_s))
+            if gapname == KINDS[0]:
+                # the raw words do not depend on the kind
+                raw = _as_u32(mark_split(seg, device=device)).astype(np.int64)
+                raw_plain = _as_u32(mark_split_reference(seg, device=device))
+                split_diff = max(split_diff, int(np.abs(raw - raw_plain).max()))
+                split_ok = raw.shape == raw_plain.shape
+            worst_split = max(worst_split, split_diff)
             ok = diff == 0 and got_w.shape == plain_w.shape
             if not ok:
-                failures.append((packing, lo, hi, gapname))
+                failures.append(("fused", packing, lo, hi, gapname))
+            if split_diff or not split_ok:
+                failures.append(("split", packing, lo, hi, gapname))
             log("kernel", f"{packing:7s} [{lo}, {hi}) {gapname:7s} "
                           f"tiles={seg.Wpad // 16384} {spec_counts(seg)} "
-                          f"scalars={got_s} {'exact' if ok else 'MISMATCH plain=' + str(plain_s)}")
+                          f"scalars={got_s} {'exact' if ok else 'MISMATCH plain=' + str(plain_s)}"
+                          f" | split {'exact' if split_diff == 0 else 'MISMATCH ' + str(split_s)}")
     if failures:
-        raise AssertionError(f"kernel disagrees with its plain version on {failures}")
-    return worst
+        raise AssertionError(f"kernels disagree with their plain versions on {failures}")
+    return worst, worst_split
 
 
 def _device_segments(argv_n: int, packing: str, n_segments: int) -> int:
@@ -186,9 +222,15 @@ def run_cli(argv: list[str]) -> tuple[dict, float]:
     return json.loads(buf.getvalue().splitlines()[-1]), wall
 
 
-def phase_main_path(device="cuda", sizes=None) -> tuple[int, int]:
+def _strip(res) -> tuple:
+    return (res.pi, res.twin_pairs, res.n_segments,
+            [dict(s.to_dict(), elapsed_s=0) for s in res.segments])
+
+
+def phase_main_path(device="cuda", sizes=None) -> tuple[int, int, dict]:
     """The counting run through the CLI, at full size. Returns (launches
-    counted, device segments processed)."""
+    counted, device segments processed, the cpu-numpy results of the small
+    runs by (packing, kind))."""
     sizes = sizes or {"big": 10**10, "mid": 10**9, "small": 10**8}
     runs = [(["--n", str(sizes["big"]), "--packing", "odds", "--twins",
               "--segments", "5"], "odds", 5, "twins")]
@@ -199,6 +241,7 @@ def phase_main_path(device="cuda", sizes=None) -> tuple[int, int]:
              for p in ("plain", "odds", "wheel30")
              for k in ("primes", "twins", "cousins")]
     launches = expected = 0
+    numpy_runs = {}
     for argv, packing, nseg, kind in runs:
         n = int(argv[1])
         mark_fused.launches = 0
@@ -226,15 +269,139 @@ def phase_main_path(device="cuda", sizes=None) -> tuple[int, int]:
                        quiet=True)
             mark_fused.launches = 0
             a = run_local(SieveConfig(backend="cuda", device=device, **cfg))
-            b = run_local(SieveConfig(backend="cpu-numpy", **cfg))
-            strip = lambda r: (r.pi, r.twin_pairs, r.n_segments,
-                               [dict(s.to_dict(), elapsed_s=0) for s in r.segments])
-            if strip(a) != strip(b):
+            b = numpy_runs[packing, kind] = run_local(
+                SieveConfig(backend="cpu-numpy", **cfg))
+            if _strip(a) != _strip(b):
                 raise AssertionError(f"{argv}: cuda and cpu-numpy results differ")
             launches += mark_fused.launches
             expected += want
             log("main", f"  == cpu-numpy SieveResult (pi {b.pi}, pairs {b.twin_pairs})")
-    return launches, expected
+    return launches, expected, numpy_runs
+
+
+def _check_launches(what: str, fused: int, split: int) -> None:
+    got = (mark_fused.launches, mark_split.launches)
+    if got != (fused, split):
+        raise AssertionError(f"{what}: launches (fused, split) = {got}, "
+                             f"expected {(fused, split)}")
+
+
+def _log_rounds(what: str, got: dict, wall: float) -> None:
+    ph = got["host_phases"]
+    log("rounds", f"{what}: pi {got['pi']} pairs {got['twin_pairs']} | run "
+                  f"{got['elapsed_s']:.4f} s (wall {wall:.4f} s), "
+                  f"{got['values_per_sec']:.4e} values/s, device_idle_frac "
+                  f"{ph['device_idle_frac']}, mode {ph['reduction_mode']} | "
+                  f"prep {ph['prep_s']} s, prep_wait {ph['prep_wait_s']} s, "
+                  f"stack {ph['stack_s']} s, dispatch {ph['dispatch_s']} s, "
+                  f"drain {ph['drain_s']} s, rounds_prepared "
+                  f"{ph['rounds_prepared']}, peak_resident "
+                  f"{ph['peak_resident_rounds']}")
+
+
+def _check_oracles(argv, got) -> None:
+    n = int(float(argv[argv.index("--n") + 1]))
+    if got["pi"] != PI[n] or got["twin_pairs"] != TWINS[n]:
+        raise AssertionError(f"{argv}: pi {got['pi']}, pairs {got['twin_pairs']}; "
+                             f"expected {PI[n]}, {TWINS[n]}")
+
+
+def _segment_device_ms(n: int, rounds: int, fused: bool, reps: int = 5) -> float:
+    """Device time of one middle segment of ``--n n --rounds rounds`` (odds,
+    twins) by CUDA events: the fused kernel, or the split kernel plus its
+    postlude. Times the segment count estimates the run's device busy time."""
+    segs = plan_segments(n, rounds)
+    layout = get_layout("odds")
+    W = max(-(-layout.nbits(s.lo, s.hi) // 32) for s in segs)
+    wpad = -(-(W + 1) // 16384) * 16384
+    s = segs[rounds // 2]
+    chain = CudaChain("odds", seed_primes(math.isqrt(n)), wpad)
+    x = fused_inputs(chain.prepare(s.lo, s.hi), "cuda")
+    kind = pairs.TWIN_ADJ
+    run = (lambda: launch_fused(x, kind)) if fused else (lambda: split_reduce(x, kind))
+    run()
+    return statistics.median(_event_ms(run, reps))
+
+
+def phase_rounds(device="cuda", sizes=None, numpy_runs=None) -> dict:
+    """The rounds path (run_mesh) at full size: the README's streaming run
+    in fused mode, a checkpointed split-mode run and its resume through
+    the CLI, then every packing x kind x mode at n=1e8 against the numpy
+    backend segment for segment. The counts are set to 0 before each run
+    and read after it. Returns the launches per kernel and the two big
+    runs' results."""
+    sizes = sizes or {"stream": 10**11, "stream_rounds": 64, "ckpt": 10**10,
+                      "ckpt_rounds": 8, "small": 10**8}
+    launches = {"fused": 0, "split": 0}
+    out = {}
+    argv = ["--n", str(sizes["stream"]), "--packing", "odds", "--twins",
+            "--rounds", str(sizes["stream_rounds"]), "--backend", "cuda",
+            "--device", device]
+    mark_fused.launches = mark_split.launches = 0
+    got, wall = run_cli(argv)
+    _check_launches(" ".join(argv), sizes["stream_rounds"], 0)
+    _check_oracles(argv, got)
+    launches["fused"] += mark_fused.launches
+    _log_rounds("sieve_torch " + " ".join(argv[:7]), got, wall)
+    out["stream"] = got
+    if device == "cuda":
+        seg_ms = _segment_device_ms(sizes["stream"], sizes["stream_rounds"], True)
+        busy = sizes["stream_rounds"] * seg_ms / 1e3
+        log("rounds", f"  device busy estimate: {sizes['stream_rounds']} x "
+                      f"{seg_ms:.4f} ms (fused kernel on the middle segment, CUDA "
+                      f"events) = {busy:.4f} s of the {got['elapsed_s']:.4f} s run: "
+                      f"idle share {1 - busy / got['elapsed_s']:.4f}")
+    with tempfile.TemporaryDirectory(prefix="sieve_ckpt_") as ck, \
+            env_set({"SIEVE_PALLAS_FUSED": "0"}):
+        argv = ["--n", str(sizes["ckpt"]), "--packing", "odds", "--twins",
+                "--rounds", str(sizes["ckpt_rounds"]), "--checkpoint-dir", ck,
+                "--backend", "cuda", "--device", device]
+        mark_fused.launches = mark_split.launches = 0
+        got, wall = run_cli(argv)
+        _check_launches(" ".join(argv), 0, sizes["ckpt_rounds"])
+        _check_oracles(argv, got)
+        launches["split"] += mark_split.launches
+        _log_rounds("SIEVE_PALLAS_FUSED=0 sieve_torch " + " ".join(argv[:7])
+                    + " --checkpoint-dir", got, wall)
+        out["ckpt"] = got
+        if device == "cuda":
+            seg_ms = _segment_device_ms(sizes["ckpt"], sizes["ckpt_rounds"], False)
+            busy = sizes["ckpt_rounds"] * seg_ms / 1e3
+            log("rounds", f"  device busy estimate: {sizes['ckpt_rounds']} x "
+                          f"{seg_ms:.4f} ms (split kernel + postlude on the middle "
+                          f"segment) = {busy:.4f} s of the {got['elapsed_s']:.4f} s "
+                          f"run: idle share {1 - busy / got['elapsed_s']:.4f}")
+        mark_fused.launches = mark_split.launches = 0
+        got, wall = run_cli(argv + ["--resume"])
+        _check_launches("resume", 0, 0)
+        _check_oracles(argv, got)
+        if got["host_phases"]["rounds_prepared"] != 0:
+            raise AssertionError("the resumed run prepared rounds")
+        log("rounds", f"  --resume: pi {got['pi']} pairs {got['twin_pairs']}, "
+                      f"0 launches, 0 rounds prepared (wall {wall:.4f} s)")
+    n = sizes["small"]
+    for packing in PACKINGS:
+        for kind in COUNT_KINDS:
+            want = numpy_runs[packing, kind]
+            for fused in ("1", "0"):
+                cfg = SieveConfig(n=n, packing=packing, count_kind=kind,
+                                  rounds=4, backend="cuda", device=device, quiet=True)
+                with env_set({"SIEVE_PALLAS_FUSED": fused}):
+                    mark_fused.launches = mark_split.launches = 0
+                    res = run_mesh(cfg)
+                    f, sp = mark_fused.launches, mark_split.launches
+                _check_launches(f"run_mesh {packing} {kind} fused={fused}",
+                                4 if fused == "1" else 0, 0 if fused == "1" else 4)
+                launches["fused"] += f
+                launches["split"] += sp
+                if _strip(res) != _strip(want):
+                    raise AssertionError(f"run_mesh n={n} {packing} {kind} "
+                                         f"fused={fused} differs from cpu-numpy")
+            log("rounds", f"n={n} --rounds 4 {packing:7s} {kind:8s}: fused and split "
+                          f"== cpu-numpy segment for segment (pi {res.pi}, pairs "
+                          f"{res.twin_pairs})")
+    out["launches"] = launches
+    return out
 
 
 def _hits(table: tuple, nbits: int) -> int:
@@ -353,33 +520,115 @@ def phase_times(dev: dict, reps: int = 20) -> dict:
                  f"popcounts over {popc_peak:.4e} /s ({POPC_LANES_PER_SM} lanes); "
                  f"against bytes over {HBM_BYTES_PER_S:.3e} B/s")
     log("times", "library: no single PyTorch call computes this function")
+    out["split"] = _split_times(seg, dev, reps)
     return out
+
+
+def _split_bound(seg, x, dev: dict) -> tuple[float, str, dict]:
+    """Least time for the split kernel's function on this segment: the raw
+    words of all 32*Wpad bits (padding included), i.e. one pattern AND per
+    (word, live group-A spec) and one clear per hit of groups B-D below
+    32*Wpad, against the group tables read once and Wpad words written."""
+    bits = 32 * seg.Wpad
+    c = spec_counts(seg)
+    hits = {g: _hits(t, bits) for g, t in (("B", seg.B), ("C", seg.C), ("D", seg.D))}
+    alu = seg.Wpad * c["A"] + sum(hits.values())
+    t_ops = alu / (dev["sms"] * INT32_LANES_PER_SM * dev["max_sm_mhz"] * 1e6)
+    nbytes = 4 * (sum(x.spans[name][1] for name, _ in _SPLIT_ARRAYS) + seg.Wpad)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    work = {"alu": alu, "hits": hits, "bytes": nbytes}
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations", work
+    return t_bytes * 1e3, "bytes", work
+
+
+def _split_times(seg, dev: dict, reps: int) -> dict:
+    """The split kernel and its postlude on the same segment, each by CUDA
+    events (median over reps after a warm-up); the split kernel's plain
+    version by host clock; the split scalars against the fused ones."""
+    kind = pairs.TWIN_ADJ
+    x = fused_inputs(seg, "cuda")
+    for _ in range(3):
+        words = launch_split(x)
+    ms = _event_ms(lambda: launch_split(x), reps)
+    plain = [_host_ms(lambda: mark_split_reference(seg, device="cuda"))
+             for _ in range(2)]
+    if not torch.equal(launch_split(x), plain[0][1]):
+        raise AssertionError("timed segment: split kernel and plain version differ")
+    lists = tuple(x.part(n).to(torch.int64) for n in
+                  ("corr_idx", "corr_mask", "flat_idx", "flat_mask"))
+    ci, cm, fi, fm = lists[0], lists[1] & 0xFFFFFFFF, lists[2], lists[3] & 0xFFFFFFFF
+    post = lambda: _postlude(words, x.nbits, x.pair_mask, ci, cm, kind, fi, fm)
+    for _ in range(3):
+        post()
+    post_ms = _event_ms(post, reps)
+    got = tuple(int(v) & 0xFFFFFFFF for v in post())
+    want = mark_fused(seg, kind, device="cuda")
+    if got != want:
+        raise AssertionError(f"timed segment: split {got} != fused {want}")
+    bound_ms, bound_by, work = _split_bound(seg, x, dev)
+    med, post_med = statistics.median(ms), statistics.median(post_ms)
+    plain_ms = min(t for t, _ in plain)
+    post_bytes = 8 * seg.Wpad  # the postlude reads the words once
+    log("times", f"{dev['card']}: n=1e9 odds segment, split kernel median "
+                 f"{med:.4f} ms (min {min(ms):.4f}, max {max(ms):.4f}, {reps} runs), "
+                 f"plain version {plain_ms:.1f} ms, bound {bound_ms:.4f} ms by "
+                 f"{bound_by} ({med / bound_ms:.1f}x): {work['alu']:.4e} ALU ops, "
+                 f"hits {work['hits']}, {work['bytes']} bytes")
+    log("times", f"{dev['card']}: n=1e9 odds segment, postlude (torch ops, "
+                 f"twins) median {post_med:.4f} ms (min {min(post_ms):.4f}, max "
+                 f"{max(post_ms):.4f}, {reps} runs); reading its {post_bytes} "
+                 f"bytes of int64 words once takes "
+                 f"{post_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; split total "
+                 f"{med + post_med:.4f} ms")
+    return {"ms": med, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "postlude_ms": post_med}
+
+
 
 
 def main() -> int:
     dev = phase_device()
     t0 = time.perf_counter()
+    t_start = t0
     phase_build()
     log("build", f"done in {time.perf_counter() - t0:.1f} s")
-    worst = phase_kernel_vs_plain()
+    worst, worst_split = phase_kernel_vs_plain()
     log("kernel", f"bit-exact on {len(CHECK_SEGMENTS) * len(KINDS)} "
-                  f"(segment, kind) pairs, max abs err {worst} "
-                  "(tolerance 0: the arithmetic is integer)")
-    launches, expected = phase_main_path()
+                  f"(segment, kind) pairs, max abs err fused {worst}, split "
+                  f"{worst_split} (tolerance 0: the arithmetic is integer)")
+    launches, expected, numpy_runs = phase_main_path()
     log("launches", f"mark_fused launched {launches} times for {expected} "
-                    "device segments over the main-path runs")
+                    "device segments over the counting runs")
+    rounds = phase_rounds(numpy_runs=numpy_runs)
+    log("launches", f"rounds path: mark_fused {rounds['launches']['fused']}, "
+                    f"mark_split {rounds['launches']['split']} launches, one per "
+                    "device segment of each mode")
     times = phase_times(dev)
+    log("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s")
     kernels = [{
         "name": "fused_mark",
         "route": "cuda",
         "source": "sieve_torch/kernels/csrc/fused_mark.cu",
         "replaces": "sieve/kernels/pallas_mark.py:694",
-        "launches": launches,
+        "launches": launches + rounds["launches"]["fused"],
         "max_abs_err": worst,
         "ms": times["ms"],
         "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "split_mark",
+        "route": "cuda",
+        "source": "sieve_torch/kernels/csrc/fused_mark.cu",
+        "replaces": "sieve/kernels/pallas_mark.py:609",
+        "launches": rounds["launches"]["split"],
+        "max_abs_err": worst_split,
+        "ms": times["split"]["ms"],
+        "plain_ms": times["split"]["plain_ms"],
+        "bound_ms": times["split"]["bound_ms"],
+        "bound_by": times["split"]["bound_by"],
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))

@@ -1,11 +1,13 @@
-"""cuda backend: the hand-written fused mark+reduce kernel on the card.
+"""cuda backend: the hand-written mark kernels on the card.
 
 The counterpart of the reference's tpu-pallas backend: the same
 SieveWorker contract and result assembly; only the device path differs
 (sieve_torch/kernels/cuda_mark.py). Per segment the host prepares the
 spec tables incrementally (one CudaChain per padded width), the tables go
-to ``config.device`` in one copy, and one uint32[4] comes back. With
-``device="cpu"`` the kernel's plain PyTorch version runs instead.
+to ``config.device`` in one copy, the fused kernel (or, under
+SIEVE_PALLAS_FUSED=0, the split kernel and its postlude) runs, and one
+uint32[4] comes back. With ``device="cpu"`` the kernels' plain PyTorch
+versions run instead.
 """
 
 from __future__ import annotations
@@ -17,7 +19,12 @@ import torch
 
 from sieve_torch.backends.cpu_numpy import CpuNumpyWorker
 from sieve_torch.bitset import get_layout
-from sieve_torch.kernels.cuda_mark import CudaChain, _padded_words, mark_fused
+from sieve_torch.kernels.cuda_mark import (
+    CudaChain,
+    _padded_words,
+    fused_enabled,
+    mark_cuda,
+)
 from sieve_torch.kernels.pairs import MIN_DEVICE_BITS, pair_kind
 from sieve_torch.worker import SegmentResult, SieveWorker
 
@@ -79,14 +86,14 @@ class CudaWorker(SieveWorker):
         if nbits < MIN_DEVICE_BITS:
             return self._cpu_fallback.process_segment(lo, hi, seed_primes, seg_id)
         seg = self._prepare(lo, hi, seed_primes)
-        self.reduction_mode = "fused"
+        self.reduction_mode = "fused" if fused_enabled() else "split"
+        key = "postlude_" + self.reduction_mode
         t1 = time.perf_counter()
-        count, pairs, first_word, last_word = mark_fused(
+        count, pairs, first_word, last_word = mark_cuda(
             seg, pair_kind(self.config), device=self.device
         )
-        self.reduce_seconds["postlude_fused"] = (
-            self.reduce_seconds.get("postlude_fused", 0.0)
-            + time.perf_counter() - t1
+        self.reduce_seconds[key] = (
+            self.reduce_seconds.get(key, 0.0) + time.perf_counter() - t1
         )
         count += layout.extras_in(lo, hi)
         twin_count = (

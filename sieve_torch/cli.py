@@ -1,10 +1,15 @@
 """Command line of the PyTorch port: a counting run.
 
-Example:
+Examples:
     python -m sieve_torch --n 1e9 --backend cuda --packing odds --twins
+    python -m sieve_torch --n 1e11 --rounds 64 --twins
+    python -m sieve_torch --n 1e10 --rounds 8 --checkpoint-dir ck [--resume]
 
-Runs on the card unless ``--device cpu`` is given, which runs the
-kernel's plain PyTorch version on the CPU. The output lines are the
+``--workers`` > 1 or ``--rounds`` > 1 on the cuda backend runs the rounds
+path (sieve_torch/parallel/mesh.py), one shard per card; anything else is
+the local run. Runs on the card unless ``--device cpu`` is given, which
+runs the kernels' plain PyTorch versions on the CPU. SIEVE_PALLAS_FUSED=0
+selects the split kernel and its postlude. The output lines are the
 reference CLI's.
 """
 
@@ -55,19 +60,18 @@ def build_parser() -> argparse.ArgumentParser:
                    dest="count_kind",
                    help="pair reduction: primes (count only), twins (p, p+2), "
                         "cousins (p, p+4); --twins is shorthand for twins")
-    p.add_argument("--workers", type=int, default=1)
-    p.add_argument("--rounds", type=int, default=1)
+    p.add_argument("--workers", type=int, default=1,
+                   help="shards per round of the rounds path, one per card")
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--rounds", type=int, default=1,
+                   help="dispatch rounds (failure-recovery granularity)")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--json", action="store_true", dest="json_output")
     return p
 
 
 def config_from_args(args: argparse.Namespace) -> SieveConfig:
-    if args.workers > 1 or args.rounds > 1:
-        raise NotImplementedError(
-            "sieve_torch: --workers > 1 and --rounds > 1 run the multi-GPU "
-            "rounds path, which comes with the multi-GPU rounds slice"
-        )
     count_kind = args.count_kind
     if count_kind is None:
         count_kind = "twins" if args.twins else "primes"
@@ -81,6 +85,10 @@ def config_from_args(args: argparse.Namespace) -> SieveConfig:
         segment_values=args.segment_values,
         twins=args.twins,
         count_kind=count_kind,
+        workers=args.workers,
+        checkpoint_dir=args.checkpoint_dir,
+        resume=args.resume,
+        rounds=args.rounds,
         quiet=args.quiet,
         json_output=args.json_output,
         device=args.device,
@@ -88,9 +96,14 @@ def config_from_args(args: argparse.Namespace) -> SieveConfig:
 
 
 def _dispatch(config: SieveConfig) -> int:
-    from sieve_torch.coordinator import run_local
+    if config.backend == "cuda" and (config.workers > 1 or config.rounds > 1):
+        from sieve_torch.parallel.mesh import run_mesh
 
-    result = run_local(config)
+        result = run_mesh(config)
+    else:
+        from sieve_torch.coordinator import run_local
+
+        result = run_local(config)
     if config.json_output:
         out = result.to_dict()
         out.pop("segments", None)

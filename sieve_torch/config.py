@@ -30,7 +30,7 @@ PAIR_GAPS = {"primes": 0, "twins": 2, "cousins": 4}
 
 # field -> the later slice of the port that brings it
 LATER_SLICES = {
-    "multihost": "multi-GPU rounds (torch.distributed)",
+    "multihost": "multihost (multi-GPU across hosts, torch.distributed)",
     "chaos": "cluster",
     "chaos_kill": "cluster",
 }

@@ -3,7 +3,9 @@
 Computes the seed primes once on the host, cuts [2, n+1) into contiguous
 segments, runs them through one worker, and merges the per-segment counts
 plus boundary bitwords into the final result. ``merge_results`` is a
-standalone pure function with the reference's merge semantics.
+standalone pure function with the reference's merge semantics. With a
+checkpoint dir every finished segment is recorded in the ledger
+(sieve_torch/checkpoint.py), and ``resume`` skips the ones it holds.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import time
 from typing import Callable, Iterable
 
 from sieve_torch.bitset import get_layout
+from sieve_torch.checkpoint import Ledger
 from sieve_torch.config import SieveConfig
 from sieve_torch.seed import seed_primes
 from sieve_torch.segments import Segment, plan_segments, validate_plan
@@ -101,11 +104,6 @@ class Coordinator:
         config: SieveConfig,
         worker_factory: Callable[[SieveConfig], SieveWorker] | None = None,
     ):
-        if config.checkpoint_dir:
-            raise NotImplementedError(
-                "sieve_torch: checkpoint/resume (the ledger) is not ported "
-                "yet; it comes with the checkpoint slice"
-            )
         self.config = config
         if worker_factory is None:
             from sieve_torch.backends import make_worker
@@ -127,14 +125,22 @@ class Coordinator:
         t0 = time.perf_counter()
         seeds = seed_primes(cfg.seed_limit)
         segs = self.plan()
+        ledger = Ledger.open(cfg) if cfg.checkpoint_dir else None
+        done: dict[int, SegmentResult] = {}
+        if ledger is not None and cfg.resume:
+            done = ledger.completed()
         worker = self._worker_factory(cfg)
         try:
-            results = [
-                worker.process_segment(seg.lo, seg.hi, seeds, seg.seg_id)
-                for seg in segs
-            ]
+            for seg in segs:
+                if seg.seg_id in done:
+                    continue
+                res = worker.process_segment(seg.lo, seg.hi, seeds, seg.seg_id)
+                done[seg.seg_id] = res
+                if ledger is not None:
+                    ledger.record(res)
         finally:
             worker.close()
+        results = [done[s.seg_id] for s in segs]
         pi, pairs = merge_results(cfg, results)
         elapsed = time.perf_counter() - t0
         return SieveResult(

@@ -8,7 +8,9 @@ strings — so this module imports nothing of the reference:
     the port's CudaSegment, so the reference's kernel and the port's can
     be fed the very same tables;
   - ``config_from_reference(sieve_config.to_dict())`` gives the port's
-    SieveConfig, with ``tpu-pallas`` mapped to ``cuda``.
+    SieveConfig, with ``tpu-pallas`` mapped to ``cuda``; its checkpoint
+    dir and ``resume`` carry over, and a ledger written by either package
+    resumes under the other (same file format, same config hash).
 """
 
 from __future__ import annotations

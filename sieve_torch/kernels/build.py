@@ -1,11 +1,12 @@
-"""Build and load the port's CUDA kernel.
+"""Build and load the port's CUDA kernels.
 
-``csrc/fused_mark.cu`` is compiled by ``nvcc`` into a shared library with
-a plain C interface and loaded with ``ctypes`` — no PyTorch headers, so a
-build takes seconds. The library goes to ``sieve_torch/_build/`` named by
-a hash of the source and flags, so an edit rebuilds and an unchanged tree
-reuses what is there. Nothing is built at import: the first call that
-needs the kernel builds it, and a failed build raises.
+``csrc/fused_mark.cu``, which holds both marking kernels (fused and
+split), is compiled by ``nvcc`` into a shared library with a plain C
+interface and loaded with ``ctypes`` — no PyTorch headers, so a build
+takes seconds. The library goes to ``sieve_torch/_build/`` named by a hash
+of the source and flags, so an edit rebuilds and an unchanged tree reuses
+what is there. Nothing is built at import: the first call that needs a
+kernel builds the library, and a failed build raises.
 """
 
 from __future__ import annotations
@@ -29,15 +30,21 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-ARGTYPES = [
+_GROUPS = [
     _P, _P, _P,                 # group A: m, rK, act
     _P, _P, _P, _I,             # group B + count
     _P, _P, _P, _I,             # group C + count
     _P, _P, _P, _I,             # group D + count
+]
+ARGTYPES = _GROUPS + [
     _P, _P, _P,                 # corrections: idx, mask, per-tile cursors
     _P, _P, _P,                 # flat clears: idx, mask, per-tile cursors
     _I, _I, ctypes.c_uint, _I,  # G, nbits, pair_mask, shift
     _P, _P, _P,                 # words_out (nullable), partials, result
+    _I, _P,                     # device, stream
+]
+SPLIT_ARGTYPES = _GROUPS + [
+    _I, _P,                     # G, words_out
     _I, _P,                     # device, stream
 ]
 
@@ -95,6 +102,8 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(build()["path"])
             lib.sieve_fused_mark.argtypes = ARGTYPES
             lib.sieve_fused_mark.restype = ctypes.c_int
+            lib.sieve_split_mark.argtypes = SPLIT_ARGTYPES
+            lib.sieve_split_mark.restype = ctypes.c_int
             lib.sieve_cuda_error_string.argtypes = [ctypes.c_int]
             lib.sieve_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -1,22 +1,30 @@
-// Fused mark+reduce of one sieve segment, for Hopper (sm_90a).
+// Mark+reduce of one sieve segment, fused and split, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel of sieve/kernels/pallas_mark.py:
-// _make_fused_kernel with its body _mark_tile (run by mark_pallas_fused),
-// need_bits false and true. It computes the same function of the same
-// host tables (sieve_torch/kernels/cuda_mark.py prepares them array for
-// array as the reference does): every bit b of the segment with
-// b % m == rK % m is cleared for every live spec of groups A-D, then the
-// flat clears, then the self-mark corrections, then the validity mask at
-// nbits; the result is the popcount, the pair count, the first word and
-// the last 32 flag bits, and with NEED_BITS the final words.
+// Replaces the two TPU kernels of sieve/kernels/pallas_mark.py, which
+// share their marking body _mark_tile:
+//  - fused_mark_kernel: _make_fused_kernel (run by mark_pallas_fused),
+//    need_bits false and true. Every bit b of the segment with
+//    b % m == rK % m is cleared for every live spec of groups A-D, then the
+//    flat clears, then the self-mark corrections, then the validity mask at
+//    nbits; the result is the popcount, the pair count, the first word and
+//    the last 32 flag bits, and with NEED_BITS the final words.
+//  - split_mark_kernel: _make_kernel (run by mark_pallas_split and the
+//    mesh's split step). Marking only: every live A-D spec clears its bits
+//    in every tile, padding past nbits included, and the raw words go to
+//    device memory; the flat clears, corrections, mask and reductions are
+//    the postlude's (sieve_torch/kernels/reduce.py), as in the reference.
+// Both compute the same functions of the same host tables
+// (sieve_torch/kernels/cuda_mark.py prepares them array for array as the
+// reference does) and share the marking phase, mark_tile.
 //
-// What bounds it. The inputs are a few spec tables and the outputs a few
-// scalars (plus the words with NEED_BITS), so it moves almost no bytes: it
-// is bound by integer operations. The function needs one clear per hit:
-// 32*Wpad/m for a spec of stride m (one pattern AND per word for group
-// A), plus the popcounts and pair splices per word. This kernel does
-// more: groups A-C test every (word, spec), (SA+SB+SC) per word; group D
-// walks its hits, but pays one % per (tile, live spec).
+// What bounds them. The fused kernel's inputs are a few spec tables and
+// its outputs a few scalars (plus the words with NEED_BITS), so it moves
+// almost no bytes: it is bound by integer operations. The function needs
+// one clear per hit: 32*Wpad/m for a spec of stride m (one pattern AND per
+// word for group A), plus the popcounts and pair splices per word. The
+// kernels do more: groups A-C test every (word, spec), (SA+SB+SC) per
+// word; group D walks its hits, but pays one % per (tile, live spec). The
+// split kernel adds a store of 4*Wpad bytes, which its marking outweighs.
 //
 // What the design does about it.
 //  - One block per (128 x 128)-word tile, the tile's 16,384 words in 64 KB
@@ -36,6 +44,8 @@
 //    shared-memory atomicAnd.
 //  - Flat clears (atomicAnd) and corrections (atomicOr) walk only the
 //    tile's own entries, through the per-tile cursors.
+//  - The split kernel stores the marked tile with coalesced 4-byte writes,
+//    thread i on word i of each 1024-word stripe.
 
 #include <atomic>
 
@@ -115,19 +125,18 @@ __device__ __forceinline__ void mark_group(unsigned (&w)[kWordsPerThread],
   }
 }
 
-template <bool NEED_BITS>
-__global__ void __launch_bounds__(kThreads)
-fused_mark_kernel(Tables tb, unsigned* __restrict__ words_out,
-                  unsigned* __restrict__ partials) {
-  extern __shared__ unsigned tile[];
-  __shared__ unsigned scratch[kThreads / 32];
-  const int t = blockIdx.x;
+// The marking phase shared by both kernels (the reference's _mark_tile):
+// groups A-C in registers, then group D on the tile in shared memory.
+// Leaves tile t's marked words in `tile` and the thread's words
+// tid + k * kThreads in `w` (before group D), and ends synchronised.
+__device__ __forceinline__ void mark_tile(const Tables& tb, int t,
+                                         unsigned (&w)[kWordsPerThread],
+                                         unsigned* tile) {
   const int base = t * kTileWords;
   const int tid = threadIdx.x;
 
   // --- groups A, B, C in registers: word k of this thread is
   // base + tid + k * kThreads
-  unsigned w[kWordsPerThread];
 #pragma unroll
   for (int k = 0; k < kWordsPerThread; ++k) w[k] = 0xFFFFFFFFu;
   const int first_bit = 32 * (base + tid);
@@ -147,6 +156,32 @@ fused_mark_kernel(Tables tb, unsigned* __restrict__ words_out,
       atomicAnd(&tile[b >> 5], ~(1u << (b & 31)));
   }
   __syncthreads();
+}
+
+// Marking only: the raw words of tile t, padding past nbits included.
+__global__ void __launch_bounds__(kThreads)
+split_mark_kernel(Tables tb, unsigned* __restrict__ words_out) {
+  extern __shared__ unsigned tile[];
+  const int t = blockIdx.x;
+  unsigned w[kWordsPerThread];
+  mark_tile(tb, t, w, tile);
+  unsigned* out = words_out + t * kTileWords;
+#pragma unroll
+  for (int k = 0; k < kWordsPerThread; ++k)
+    out[threadIdx.x + k * kThreads] = tile[threadIdx.x + k * kThreads];
+}
+
+template <bool NEED_BITS>
+__global__ void __launch_bounds__(kThreads)
+fused_mark_kernel(Tables tb, unsigned* __restrict__ words_out,
+                  unsigned* __restrict__ partials) {
+  extern __shared__ unsigned tile[];
+  __shared__ unsigned scratch[kThreads / 32];
+  const int t = blockIdx.x;
+  const int base = t * kTileWords;
+  const int tid = threadIdx.x;
+  unsigned w[kWordsPerThread];
+  mark_tile(tb, t, w, tile);
 
   // --- patches: flat clears before corrections (a flat class can cross
   // its own seed's bit, which the correction re-sets)
@@ -230,24 +265,32 @@ combine_kernel(const unsigned* __restrict__ partials, int G, int nbits,
 }
 
 constexpr int kMaxDevices = 64;
+constexpr size_t kTileBytes = kTileWords * sizeof(unsigned);
 
-// The 64 KB shared-memory opt-in is set once per (variant, device); a
+// The 64 KB shared-memory opt-in is set once per (kernel, device); a
 // repeated set from a racing caller is harmless.
+template <typename Kernel>
+cudaError_t opt_in_smem(Kernel kernel, std::atomic<bool>* done, int device) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[device].load(std::memory_order_acquire)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kTileBytes));
+    if (e != cudaSuccess) return e;
+    done[device].store(true, std::memory_order_release);
+  }
+  return cudaSuccess;
+}
+
 template <bool NEED_BITS>
 cudaError_t launch_mark(const Tables& tb, int G, unsigned* words_out,
                         unsigned* partials, int device, cudaStream_t stream) {
   static std::atomic<bool> smem_set[kMaxDevices];
-  const size_t smem = kTileWords * sizeof(unsigned);
-  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!smem_set[device].load(std::memory_order_acquire)) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_mark_kernel<NEED_BITS>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    smem_set[device].store(true, std::memory_order_release);
-  }
-  fused_mark_kernel<NEED_BITS><<<G, kThreads, smem, stream>>>(tb, words_out,
-                                                               partials);
+  const cudaError_t e =
+      opt_in_smem(fused_mark_kernel<NEED_BITS>, smem_set, device);
+  if (e != cudaSuccess) return e;
+  fused_mark_kernel<NEED_BITS><<<G, kThreads, kTileBytes, stream>>>(
+      tb, words_out, partials);
   return cudaGetLastError();
 }
 
@@ -280,6 +323,30 @@ int sieve_fused_mark(
   if (e != cudaSuccess) return e;
   combine_kernel<<<1, kThreads, 0, s>>>(partials, G, nbits, pair_mask, shift,
                                         result);
+  return cudaGetLastError();
+}
+
+// Launches the split marking kernel (G blocks) on `stream`: the raw
+// marked words of the G tiles go to words_out (G * 16384 words). Every
+// pointer is device memory. Allocates nothing and does not synchronise.
+// Returns the CUDA error code.
+int sieve_split_mark(
+    const int* a_m, const int* a_rk, const unsigned* a_act,
+    const int* b_m, const int* b_rk, const unsigned* b_act, int sb,
+    const int* c_m, const int* c_rk, const unsigned* c_act, int sc,
+    const int* d_m, const int* d_rk, const unsigned* d_act, int nd,
+    int G, unsigned* words_out, int device, void* stream) {
+  static std::atomic<bool> smem_set[kMaxDevices];
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  e = opt_in_smem(split_mark_kernel, smem_set, device);
+  if (e != cudaSuccess) return e;
+  const Tables tb{a_m, a_rk, a_act, b_m, b_rk, b_act, sb,
+                  c_m, c_rk, c_act, sc, d_m, d_rk, d_act, nd,
+                  nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                  0, 0u, 0};
+  split_mark_kernel<<<G, kThreads, kTileBytes,
+                      static_cast<cudaStream_t>(stream)>>>(tb, words_out);
   return cudaGetLastError();
 }
 

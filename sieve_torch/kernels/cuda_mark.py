@@ -1,8 +1,8 @@
-"""Fused mark+reduce on the card: host tables, the kernel wrapper, and
-its plain PyTorch version.
+"""Mark+reduce on the card, fused and split: host tables, the kernel
+wrappers, and their plain PyTorch versions.
 
 One segment's work is described by host-prepared spec tables, grouped by
-bit stride m exactly as the reference's TPU kernel groups them, so the
+bit stride m exactly as the reference's TPU kernels group them, so the
 tables equal the reference's array for array:
 
   A (m < 32)                  several marked bits per word
@@ -17,18 +17,25 @@ A spec (m, r) clears every bit b of the segment with b % m == r; the
 table column ``rK`` holds r + K*m with K*m >= 32*Wpad, so rK - 32*w > 0
 for every word w. The TPU-only columns (M1, rcp1, rcp: its f32
 reciprocal mod) are kept so the tables stay the reference's; the CUDA
-kernel uses an exact integer mod and does not read them.
+kernels use an exact integer mod and do not read them.
 
-The kernel (csrc/fused_mark.cu) marks each 16,384-word tile, applies the
-flat clears, then the self-mark corrections, then the validity mask at
-nbits, and reduces the segment to four uint32 scalars: the popcount, the
-pair count, the first word, and the last 32 flag bits. ``need_bits`` also
-returns the final words.
+Both kernels live in csrc/fused_mark.cu and share its marking phase.
 
-``mark_fused`` launches the kernel for a CUDA device and runs
-``mark_fused_reference`` — the plain PyTorch version of the same
-function — for the CPU. A failed build or launch raises; nothing falls
-back.
+  - The fused kernel marks each 16,384-word tile, applies the flat clears,
+    then the self-mark corrections, then the validity mask at nbits, and
+    reduces the segment to four uint32 scalars: the popcount, the pair
+    count, the first word, and the last 32 flag bits. ``need_bits`` also
+    returns the final words. ``mark_fused`` launches it for a CUDA device
+    and runs ``mark_fused_reference``, its plain version, for the CPU.
+  - The split kernel only marks: it writes every tile's raw words,
+    padding past nbits included, and the postlude (kernels/reduce.py)
+    patches, masks and reduces them. ``mark_split`` launches it for a CUDA
+    device and runs ``mark_split_reference`` for the CPU;
+    ``mark_cuda_split`` is kernel plus postlude.
+
+``mark_cuda`` picks one per call, as the reference's ``mark_pallas`` does:
+fused unless SIEVE_PALLAS_FUSED=0. A failed build or launch raises;
+nothing falls back.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ import torch
 from sieve_torch import env
 from sieve_torch.bitset import get_layout
 from sieve_torch.kernels.pairs import PAIR_SHIFT
+from sieve_torch.kernels.reduce import _postlude, pack4, popcount
 from sieve_torch.kernels.specs import (
     DeltaModCache,
     _corrections,
@@ -65,6 +73,7 @@ D_LANES = 128                   # specs per group-D table row
 _FLAT_MAX_HITS = 8
 # 32 * Wpad must stay below this: the rK columns are int32
 MAX_BITS = 1 << 30
+_U32 = 0xFFFFFFFF               # words ride as int64 holding uint32 values
 
 
 def _flat_cutoff(Wpad: int) -> int:
@@ -402,8 +411,11 @@ def fused_inputs(seg: CudaSegment, device) -> FusedInputs:
         parts.append(a)
         off += a.size
     host = torch.from_numpy(np.concatenate(parts))
+    if torch.device(device).type == "cuda":
+        # pinned, so the copy is queued on the stream and the host goes on
+        host = host.pin_memory()
     return FusedInputs(
-        buf=host.to(device),
+        buf=host.to(device, non_blocking=True),
         spans=spans,
         nbits=seg.nbits,
         Wpad=seg.Wpad,
@@ -492,17 +504,117 @@ def _fused_launch(x: FusedInputs, twin_kind: int, need_bits: bool):
     return res
 
 
+def fused_reduce(x: FusedInputs, twin_kind: int) -> torch.Tensor:
+    """(count, pairs, first_word, last_word) of one segment by the fused
+    kernel, as an int64[4] of uint32 values left on x's device (no
+    fetch); the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return torch.tensor(_fused_plain(x, twin_kind, False), dtype=torch.int64)
+    result, _ = launch_fused(x, twin_kind)
+    return result.to(torch.int64) & _U32
+
+
+# --- the split kernel -----------------------------------------------------------
+
+# the split kernel reads the group tables only
+_SPLIT_ARRAYS = _KERNEL_ARRAYS[:12]
+
+
+def launch_split(x: FusedInputs) -> torch.Tensor:
+    """Launch the split marking kernel on inputs already on the card, on
+    the current stream, without waiting: returns the int32 tensor of the
+    Wpad raw words (uint32 bits). Each launch adds one to
+    ``mark_split.launches``."""
+    from sieve_torch.kernels import build
+
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"launch_split: inputs on {dev}, not a CUDA device")
+    lib = build.load()
+    words = torch.empty(x.Wpad, dtype=torch.int32, device=dev)
+    ptr = {name: x.part(name).data_ptr() for name, _ in _SPLIT_ARRAYS}
+    with torch.cuda.device(dev):
+        err = lib.sieve_split_mark(
+            ptr["a_m"], ptr["a_rk"], ptr["a_act"],
+            ptr["b_m"], ptr["b_rk"], ptr["b_act"], x.spans["b_m"][1],
+            ptr["c_m"], ptr["c_rk"], ptr["c_act"], x.spans["c_m"][1],
+            ptr["d_m"], ptr["d_rk"], ptr["d_act"], x.spans["d_m"][1],
+            x.Wpad // TILE_WORDS, words.data_ptr(),
+            dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"split_mark launch failed: {lib.sieve_cuda_error_string(err).decode()}"
+        )
+    mark_split.launches += 1
+    return words
+
+
+def _split_words(x: FusedInputs) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return _split_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"mark_split: unsupported device {x.device}")
+    return launch_split(x)
+
+
+def mark_split(seg: CudaSegment, device="cuda") -> torch.Tensor:
+    """The split kernel's raw words of one prepared segment: an int32
+    tensor of Wpad words (uint32 bits) on ``device``, every live A-D spec
+    applied to every word, padding past nbits included; no flat clears,
+    no corrections, no mask. On a CUDA device this launches the kernel
+    (``mark_split.launches``); on the CPU it runs the plain version."""
+    return _split_words(fused_inputs(seg, device))
+
+
+mark_split.launches = 0
+
+
+def mark_split_reference(seg: CudaSegment, device="cpu",
+                         chunk_words: int = 1 << 20) -> torch.Tensor:
+    """The plain PyTorch version of ``mark_split``: same inputs, same
+    words, on any device."""
+    return _split_plain(fused_inputs(seg, device), chunk_words)
+
+
+def split_reduce(x: FusedInputs, twin_kind: int) -> torch.Tensor:
+    """The split kernel plus its postlude on one segment: (count, pairs,
+    first_word, last_word) as an int64[4] of uint32 values left on x's
+    device (no fetch)."""
+    words = _split_words(x)
+    ci, cm = (x.part("corr_idx").to(torch.int64),
+              x.part("corr_mask").to(torch.int64) & _U32)
+    fi, fm = (x.part("flat_idx").to(torch.int64),
+              x.part("flat_mask").to(torch.int64) & _U32)
+    return pack4(*_postlude(words, x.nbits, x.pair_mask, ci, cm, twin_kind,
+                            fi, fm))
+
+
+def mark_cuda_split(seg: CudaSegment, twin_kind: int, device="cuda"):
+    """The split kernel and the postlude on one prepared segment; returns
+    (count, pairs, first_word, last_word), one device-to-host fetch. The
+    counterpart of the reference's mark_pallas_split."""
+    x = fused_inputs(seg, device)
+    return tuple(int(v) for v in split_reduce(x, twin_kind).cpu().tolist())
+
+
+def fused_enabled() -> bool:
+    """Fused in-kernel reduction is the default; SIEVE_PALLAS_FUSED=0
+    selects the split kernel + postlude. Read per call, as the reference's
+    pallas_fused_enabled is (this card has no tuned.json)."""
+    return env.env_str("SIEVE_PALLAS_FUSED", "1") != "0"
+
+
+def mark_cuda(seg: CudaSegment, twin_kind: int, device="cuda"):
+    """Segment entry point, the reference's mark_pallas: the fused kernel
+    by default, SIEVE_PALLAS_FUSED=0 for the split kernel + postlude. Both
+    return the same (count, pairs, first_word, last_word)."""
+    if fused_enabled():
+        return mark_fused(seg, twin_kind, device=device)
+    return mark_cuda_split(seg, twin_kind, device=device)
+
+
 # --- plain version -----------------------------------------------------------
-
-_U32 = 0xFFFFFFFF
-
-
-def _popcount(x: torch.Tensor) -> torch.Tensor:
-    """SWAR popcount of 32-bit words carried in int64."""
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    return ((x * 0x01010101) >> 24) & 0xFF
 
 
 def _splice(words: torch.Tensor, nxt: torch.Tensor, shift: int) -> torch.Tensor:
@@ -531,6 +643,29 @@ def _live_specs(x: FusedInputs) -> list[tuple[int, int]]:
     return out
 
 
+def _mark_words(specs, w0: int, w1: int, dev) -> torch.Tensor:
+    """Words [w0, w1) after every live spec: clear every bit b with
+    b % m == r (strided slice assignment on a bool array), packed to words
+    carried in int64."""
+    bits = torch.ones(32 * (w1 - w0), dtype=torch.bool, device=dev)
+    b0 = 32 * w0
+    for m, r in specs:
+        bits[(r - b0) % m :: m] = False
+    return _pack(bits)
+
+
+def _split_plain(x: FusedInputs, chunk_words: int = 1 << 20) -> torch.Tensor:
+    """Chunk by chunk of words, the raw marked words as int32 (uint32
+    bits), padding past nbits included."""
+    specs = _live_specs(x)
+    out = torch.empty(x.Wpad, dtype=torch.int32, device=x.device)
+    for w0 in range(0, x.Wpad, chunk_words):
+        w1 = min(w0 + chunk_words, x.Wpad)
+        words = _mark_words(specs, w0, w1, x.device)
+        out[w0:w1] = torch.where(words > 0x7FFFFFFF, words - (1 << 32), words)
+    return out
+
+
 def _patch_list(x: FusedInputs, idx: str, mask: str):
     m = x.part(mask).to(torch.int64) & _U32
     live = m != 0
@@ -539,11 +674,9 @@ def _patch_list(x: FusedInputs, idx: str, mask: str):
 
 def _fused_plain(x: FusedInputs, twin_kind: int, need_bits: bool,
                  chunk_words: int = 1 << 20):
-    """Chunk by chunk of words: clear every bit b with b % m == r of every
-    live spec (strided slice assignment on a bool array), pack to words
-    carried in int64, apply the flat clears, the corrections and the
-    validity mask, then count bits and pairs (SWAR popcount) and pick the
-    boundary words."""
+    """Chunk by chunk of words: mark (``_mark_words``), apply the flat
+    clears, the corrections and the validity mask, then count bits and
+    pairs (SWAR popcount) and pick the boundary words."""
     dev = x.device
     nbits, Wpad = x.nbits, x.Wpad
     shift = PAIR_SHIFT.get(twin_kind, 0)
@@ -560,11 +693,7 @@ def _fused_plain(x: FusedInputs, twin_kind: int, need_bits: bool,
     kept = []
     for w0 in range(0, Wpad, chunk_words):
         w1 = min(w0 + chunk_words, Wpad)
-        bits = torch.ones(32 * (w1 - w0), dtype=torch.bool, device=dev)
-        b0 = 32 * w0
-        for m, r in specs:
-            bits[(r - b0) % m :: m] = False
-        words = _pack(bits)
+        words = _mark_words(specs, w0, w1, dev)
         sel = (fi >= w0) & (fi < w1)
         loc = fi[sel] - w0
         words[loc] = words[loc] & (~fm[sel] & _U32)
@@ -574,13 +703,13 @@ def _fused_plain(x: FusedInputs, twin_kind: int, need_bits: bool,
         valid = (nbits - 32 * torch.arange(w0, w1, device=dev)).clamp(0, 32)
         part = (torch.ones_like(valid) << valid.clamp(max=31)) - 1
         words = words & torch.where(valid >= 32, _U32, part)
-        count += int(_popcount(words).sum())
+        count += int(popcount(words).sum())
         if shift:
             if prev_last is not None:
-                pairs += int(_popcount(prev_last & _splice(prev_last, words[:1], shift)
+                pairs += int(popcount(prev_last & _splice(prev_last, words[:1], shift)
                                        & pmask).sum())
             adj = words[:-1] & _splice(words[:-1], words[1:], shift) & pmask
-            pairs += int(_popcount(adj).sum())
+            pairs += int(popcount(adj).sum())
             prev_last = words[-1:]
         if first is None:
             first = int(words[0])
@@ -590,7 +719,7 @@ def _fused_plain(x: FusedInputs, twin_kind: int, need_bits: bool,
         if need_bits:
             kept.append(words.cpu())
     if shift:  # the last word's right neighbour lies past the array: zero
-        pairs += int(_popcount(prev_last & _splice(prev_last, prev_last * 0, shift)
+        pairs += int(popcount(prev_last & _splice(prev_last, prev_last * 0, shift)
                                & pmask).sum())
     last = ((boundary[wl] >> sh) | (0 if sh == 0 else boundary[wl + 1] << (32 - sh))) & _U32
     res = (count & _U32, pairs & _U32, first, last)

@@ -61,3 +61,10 @@ def straddle_pairs(
         if right_prime and is_prime_from_boundary(layout, left, v):
             total += 1
     return total
+
+
+def straddle_twins(
+    layout: Layout, left: SegmentResult, right: SegmentResult, n: int
+) -> int:
+    """Twin pairs (v, v+2) with v in `left`, v+2 in `right` (consecutive)."""
+    return straddle_pairs(layout, left, right, n, 2)

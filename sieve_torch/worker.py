@@ -41,6 +41,32 @@ class SegmentResult:
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
 
+    @classmethod
+    def from_dict(cls, d: dict) -> "SegmentResult":
+        return cls(**{f.name: d[f.name] for f in dataclasses.fields(cls)})
+
+    def is_sane(self) -> bool:
+        """Structural validity, used by the ledger's corrupt-file salvage
+        path: an entry that parses but violates these bounds is damage,
+        not a result (sieve_torch/checkpoint.py)."""
+        ints = (
+            self.seg_id, self.lo, self.hi, self.count, self.twin_count,
+            self.first_word, self.last_word, self.nbits,
+        )
+        if not all(isinstance(v, int) for v in ints):
+            return False
+        return (
+            self.seg_id >= 0
+            and 2 <= self.lo < self.hi
+            and self.nbits > 0
+            and 0 <= self.count <= self.hi - self.lo
+            and 0 <= self.twin_count <= self.hi - self.lo
+            and self.first_word >= 0
+            and self.last_word >= 0
+            and isinstance(self.elapsed_s, (int, float))
+            and self.elapsed_s >= 0
+        )
+
 
 class SieveWorker(abc.ABC):
     """A backend that sieves one segment at a time.

@@ -177,8 +177,8 @@ def test_carried_config_rejects_later_slices(field, value, slice_name):
 def test_config_rejects_unported_parts():
     with pytest.raises(NotImplementedError, match="cluster"):
         SieveConfig(n=1000, chaos="kill:1@s2")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        run_local(SieveConfig(n=1000, device="cpu", checkpoint_dir="ck"))
+    with pytest.raises(NotImplementedError, match="torch.distributed"):
+        SieveConfig(n=1000, multihost=True)
     with pytest.raises(ValueError, match="backend"):
         SieveConfig(n=1000, backend="tpu-pallas")
 
@@ -216,9 +216,12 @@ def test_cli_json_and_unported_flags(capsys):
     out = json.loads(capsys.readouterr().out)
     assert (out["pi"], out["twin_pairs"], out["backend"]) == (PI[10**5], TWINS[10**5], "cuda")
     assert "segments" not in out
+    # --workers and --rounds run the rounds path; --checkpoint-dir the ledger
     for flag in ("--workers", "--rounds"):
-        assert main(["--n", "1e5", "--device", "cpu", flag, "2"]) == 2
-        assert "multi-GPU" in capsys.readouterr().err
+        assert main(["--n", "1e5", "--device", "cpu", "--json", flag, "2"]) == 0
+        out = json.loads(capsys.readouterr().out)
+        assert (out["pi"], out["n_segments"]) == (PI[10**5], 2)
+        assert out["host_phases"]["reduction_mode"] == "fused"
 
 
 @pytest.mark.parametrize("packing", PACKINGS)
