@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--other DIR ...]
 
 Builds the port's CUDA kernels (fused and split marking) from the sources
 in this checkout, holds each bit for bit against its plain PyTorch version
@@ -9,9 +9,14 @@ on the card, drives the port's counting run and its rounds path (the
 n=1e11 streaming run, a split-mode checkpointed run and its resume) through
 their entry points at full size, checks that every device segment went
 through the kernel of its mode, and times the kernels and the split
-postlude. Each phase prints its lines; any failure raises, so the script
-exits non-zero and prints no result. The last three lines are the kernel
-table (JSON), the card's name and power limit, and the result line:
+postlude, whole and with one spec group live at a time. Each ``--other
+DIR`` names a checkout of another commit (the parent, unpacked with ``git
+archive``) or a variant of these sources, whose kernels are built too and
+timed in turns with these in the group phase (others, this, this, others
+reversed), labelled by the directory's name. Each phase prints its lines;
+any failure raises, so the script exits non-zero and prints no result. The
+last three lines are the kernel table (JSON), the card's name and power
+limit, and the result line:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
@@ -21,7 +26,9 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -31,6 +38,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -83,6 +91,10 @@ CHECK_SEGMENTS = [
     # the last segment of the main path's n=1e10 odds run in 5 segments
     ("odds", 8_000_000_000, 10**10 + 1, 10**5, {}),
 ]
+# (n, rounds, which round) of the rounds path held against the plain
+# versions too: the n=1e11 middle round the streaming run launches, and the
+# last n=1e10 --rounds 8 round, whose padding past nbits is the widest
+CHECK_ROUNDS = [(10**11, 64, "middle"), (10**10, 8, "last")]
 PI = {10**8: 5_761_455, 10**9: 50_847_534, 10**10: 455_052_511,
       10**11: 4_118_054_813}
 TWINS = {10**9: 3_424_506, 10**10: 27_412_679, 10**11: 224_376_048}
@@ -157,50 +169,80 @@ def _as_u32(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().view(np.uint32)
 
 
-def phase_kernel_vs_plain(device="cuda", segments=CHECK_SEGMENTS) -> tuple[int, int]:
-    """Each kernel against its plain version on the same tables. Fused: the
-    four scalars without and with need_bits, and the need_bits words bit
-    for bit. Split: the raw words bit for bit (padding included), and the
-    split scalars (kernel + postlude) against the fused ones for every
-    kind. Returns the largest absolute difference seen per kernel (0 when
-    exact)."""
-    worst, worst_split, failures = 0, 0, []
+def _round_segment(n: int, rounds: int, which: str):
+    """The middle or last round of ``--n n --rounds rounds`` (odds, twins),
+    prepared as run_mesh prepares it: by a CudaChain at the run's common
+    padded width."""
+    segs = plan_segments(n, rounds)
+    layout = get_layout("odds")
+    W = max(-(-layout.nbits(s.lo, s.hi) // 32) for s in segs)
+    wpad = -(-(W + 1) // 16384) * 16384
+    s = segs[rounds // 2 if which == "middle" else rounds - 1]
+    return CudaChain("odds", seed_primes(math.isqrt(n)), wpad).prepare(s.lo, s.hi)
+
+
+def _check(seg, kind, device, raw: bool, chunk_words: int) -> tuple[int, int, str]:
+    """Both kernels against their plain versions on one segment and kind.
+    Fused: the four scalars without and with need_bits, and the need_bits
+    words bit for bit. Split: the split scalars (kernel + postlude) against
+    the fused ones and, with ``raw``, the raw words bit for bit (padding
+    included). Returns the largest absolute difference per kernel and the
+    log line's verdict."""
+    plain_s, plain_w = mark_fused_reference(seg, kind, need_bits=True, device=device,
+                                            chunk_words=chunk_words)
+    got_s = mark_fused(seg, kind, device=device)
+    got_sb, got_w = mark_fused(seg, kind, need_bits=True, device=device)
+    diff = max(
+        max(abs(a - b) for a, b in zip(got_s, plain_s)),
+        max(abs(a - b) for a, b in zip(got_sb, plain_s)),
+        int(np.abs(got_w.astype(np.int64) - plain_w.astype(np.int64)).max()),
+    )
+    if got_w.shape != plain_w.shape:
+        diff = max(diff, 1)
+    split_s = mark_cuda_split(seg, kind, device=device)
+    split_diff = max(abs(a - b) for a, b in zip(split_s, got_s))
+    if raw:
+        raw_got = _as_u32(mark_split(seg, device=device)).astype(np.int64)
+        raw_plain = _as_u32(mark_split_reference(seg, device=device,
+                                                 chunk_words=chunk_words))
+        split_diff = max(split_diff, 1 if raw_got.shape != raw_plain.shape else
+                         int(np.abs(raw_got - raw_plain).max()))
+    verdict = (f"scalars={got_s} {'exact' if diff == 0 else 'MISMATCH plain=' + str(plain_s)}"
+               f" | split {'exact' if split_diff == 0 else 'MISMATCH ' + str(split_s)}")
+    return diff, split_diff, verdict
+
+
+def phase_kernel_vs_plain(device="cuda", segments=CHECK_SEGMENTS,
+                          rounds=CHECK_ROUNDS) -> tuple[int, int, int]:
+    """Each kernel against its plain version on the same tables: every
+    check segment x kind, then the check rounds (twins; the plain
+    versions in one chunk of Wpad words). The raw split words do not
+    depend on the kind and are checked once per segment. Returns the
+    largest absolute difference seen per kernel (0 when exact) and the
+    number of (segment, kind) pairs."""
+    worst, worst_split, failures, cases = 0, 0, [], []
     for packing, lo, hi, limit, env in segments:
         for gapname in KINDS:
             with env_set(env):
                 seg = _segment(packing, lo, hi, limit, 4 if gapname == "cousins" else 2)
-            kind = _kind(packing, gapname)
-            plain_s, plain_w = mark_fused_reference(seg, kind, need_bits=True,
-                                                    device=device)
-            got_s = mark_fused(seg, kind, device=device)
-            got_sb, got_w = mark_fused(seg, kind, need_bits=True, device=device)
-            diff = max(
-                max(abs(a - b) for a, b in zip(got_s, plain_s)),
-                max(abs(a - b) for a, b in zip(got_sb, plain_s)),
-                int(np.abs(got_w.astype(np.int64) - plain_w.astype(np.int64)).max()),
-            )
-            worst = max(worst, diff)
-            split_s = mark_cuda_split(seg, kind, device=device)
-            split_diff = max(abs(a - b) for a, b in zip(split_s, got_s))
-            if gapname == KINDS[0]:
-                # the raw words do not depend on the kind
-                raw = _as_u32(mark_split(seg, device=device)).astype(np.int64)
-                raw_plain = _as_u32(mark_split_reference(seg, device=device))
-                split_diff = max(split_diff, int(np.abs(raw - raw_plain).max()))
-                split_ok = raw.shape == raw_plain.shape
-            worst_split = max(worst_split, split_diff)
-            ok = diff == 0 and got_w.shape == plain_w.shape
-            if not ok:
-                failures.append(("fused", packing, lo, hi, gapname))
-            if split_diff or not split_ok:
-                failures.append(("split", packing, lo, hi, gapname))
-            log("kernel", f"{packing:7s} [{lo}, {hi}) {gapname:7s} "
-                          f"tiles={seg.Wpad // 16384} {spec_counts(seg)} "
-                          f"scalars={got_s} {'exact' if ok else 'MISMATCH plain=' + str(plain_s)}"
-                          f" | split {'exact' if split_diff == 0 else 'MISMATCH ' + str(split_s)}")
+            cases.append((f"{packing:7s} [{lo}, {hi}) {gapname:7s}", seg,
+                          _kind(packing, gapname), gapname == KINDS[0], 1 << 20))
+    for n, nrounds, which in rounds:
+        seg = _round_segment(n, nrounds, which)
+        cases.append((f"n={n:.0e} --rounds {nrounds} {which} round, twins", seg,
+                      pairs.TWIN_ADJ, True, seg.Wpad))
+    for what, seg, kind, raw, chunk_words in cases:
+        diff, split_diff, verdict = _check(seg, kind, device, raw, chunk_words)
+        worst, worst_split = max(worst, diff), max(worst_split, split_diff)
+        if diff:
+            failures.append(("fused", what))
+        if split_diff:
+            failures.append(("split", what))
+        log("kernel", f"{what} nbits={seg.nbits} tiles={seg.Wpad // 16384} "
+                      f"{spec_counts(seg)} {verdict}")
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions on {failures}")
-    return worst, worst_split
+    return worst, worst_split, len(cases)
 
 
 def _device_segments(argv_n: int, packing: str, n_segments: int) -> int:
@@ -310,13 +352,7 @@ def _segment_device_ms(n: int, rounds: int, fused: bool, reps: int = 5) -> float
     """Device time of one middle segment of ``--n n --rounds rounds`` (odds,
     twins) by CUDA events: the fused kernel, or the split kernel plus its
     postlude. Times the segment count estimates the run's device busy time."""
-    segs = plan_segments(n, rounds)
-    layout = get_layout("odds")
-    W = max(-(-layout.nbits(s.lo, s.hi) // 32) for s in segs)
-    wpad = -(-(W + 1) // 16384) * 16384
-    s = segs[rounds // 2]
-    chain = CudaChain("odds", seed_primes(math.isqrt(n)), wpad)
-    x = fused_inputs(chain.prepare(s.lo, s.hi), "cuda")
+    x = fused_inputs(_round_segment(n, rounds, "middle"), "cuda")
     kind = pairs.TWIN_ADJ
     run = (lambda: launch_fused(x, kind)) if fused else (lambda: split_reduce(x, kind))
     run()
@@ -473,54 +509,62 @@ def _host_ms(fn) -> tuple[float, object]:
     return (time.perf_counter() - t0) * 1e3, out
 
 
+def _time_shapes() -> list[tuple[str, object]]:
+    """The timed shapes: the n=1e9 odds segment of the counting run, and
+    the n=1e11 middle round of the streaming run (the main path's own)."""
+    return [("n=1e9 odds segment", _segment("odds", 2, 10**9 + 1, None, 2)),
+            ("n=1e11 middle round", _round_segment(10**11, 64, "middle"))]
+
+
 def phase_times(dev: dict, reps: int = 20) -> dict:
-    """The n=1e9 odds segment, without and with need_bits: the kernel by
-    CUDA events (median over reps after a warm-up), the plain version by
-    host clock around a synchronised run, and the bound. Returns the
-    counting variant's numbers."""
+    """Per timed shape, the fused kernel without and with need_bits, then
+    the split kernel and its postlude: each kernel by CUDA events (median
+    over reps after a warm-up), its plain version by host clock around a
+    synchronised run (one chunk of Wpad words), and its bound. Returns the
+    numbers by shape, variant ("counting", "need_bits", "split")."""
     kind = pairs.TWIN_ADJ
-    seg = _segment("odds", 2, 10**9 + 1, None, 2)
-    x = fused_inputs(seg, "cuda")
     out = {}
-    for need_bits in (False, True):
-        for _ in range(3):
-            launch_fused(x, kind, need_bits)
-        ms = _event_ms(lambda: launch_fused(x, kind, need_bits), reps)
-        plain = [_host_ms(lambda: mark_fused_reference(seg, kind, need_bits,
-                                                       device="cuda"))
-                 for _ in range(2)]
-        want = plain[0][1]
-        result, words = launch_fused(x, kind, need_bits)
-        got = tuple(int(v) for v in result.cpu().numpy().view(np.uint32))
-        if need_bits:
-            got = (got, words.cpu().numpy().view(np.uint32).reshape(-1, 128))
-            ok = got[0] == want[0] and np.array_equal(got[1], want[1])
-        else:
-            ok = got == want
-        if not ok:
-            raise AssertionError(f"timed segment, need_bits={need_bits}: "
-                                 "kernel and plain version differ")
-        bound_ms, bound_by, work, alu_peak, popc_peak = _bound(
-            seg, x, dev, pairs.PAIR_SHIFT[kind], need_bits)
-        label = "need_bits" if need_bits else "counting"
-        plain_ms = min(t for t, _ in plain)
-        med = statistics.median(ms)
-        log("times", f"{dev['card']}: n=1e9 odds segment ({label}), Wpad={seg.Wpad}, "
-                     f"kernel median {med:.4f} ms (min {min(ms):.4f}, "
-                     f"max {max(ms):.4f}, {reps} runs), plain version {plain_ms:.1f} ms, "
-                     f"bound {bound_ms:.4f} ms by {bound_by} ({med / bound_ms:.1f}x)")
-        if not need_bits:
-            out = {"ms": med, "plain_ms": plain_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by}
-    log("times", f"bound: {work['words']} words, {spec_counts(seg)}; group A "
-                 f"{work['A_ops']} pattern ANDs, hits {work['hits']}; "
-                 f"{work['alu']:.4e} 32-bit ALU ops over {alu_peak:.4e} ops/s "
-                 f"({dev['sms']} SMs x {INT32_LANES_PER_SM} lanes x "
-                 f"{dev['max_sm_mhz']:.0f} MHz max SM clock), {work['popc']:.4e} "
-                 f"popcounts over {popc_peak:.4e} /s ({POPC_LANES_PER_SM} lanes); "
-                 f"against bytes over {HBM_BYTES_PER_S:.3e} B/s")
-    log("times", "library: no single PyTorch call computes this function")
-    out["split"] = _split_times(seg, dev, reps)
+    for shape, seg in _time_shapes():
+        x = fused_inputs(seg, "cuda")
+        res = out[shape] = {}
+        for need_bits in (False, True):
+            for _ in range(3):
+                launch_fused(x, kind, need_bits)
+            ms = _event_ms(lambda: launch_fused(x, kind, need_bits), reps)
+            plain = [_host_ms(lambda: mark_fused_reference(
+                seg, kind, need_bits, device="cuda", chunk_words=seg.Wpad))
+                for _ in range(2)]
+            want = plain[0][1]
+            result, words = launch_fused(x, kind, need_bits)
+            got = tuple(int(v) for v in result.cpu().numpy().view(np.uint32))
+            if need_bits:
+                got = (got, words.cpu().numpy().view(np.uint32).reshape(-1, 128))
+                ok = got[0] == want[0] and np.array_equal(got[1], want[1])
+            else:
+                ok = got == want
+            if not ok:
+                raise AssertionError(f"timed {shape}, need_bits={need_bits}: "
+                                     "kernel and plain version differ")
+            bound_ms, bound_by, work, alu_peak, popc_peak = _bound(
+                seg, x, dev, pairs.PAIR_SHIFT[kind], need_bits)
+            label = "need_bits" if need_bits else "counting"
+            plain_ms = min(t for t, _ in plain)
+            med = statistics.median(ms)
+            log("times", f"{dev['card']}: {shape} ({label}), Wpad={seg.Wpad}, "
+                         f"kernel median {med:.4f} ms (min {min(ms):.4f}, "
+                         f"max {max(ms):.4f}, {reps} runs), plain version {plain_ms:.1f} ms, "
+                         f"bound {bound_ms:.4f} ms by {bound_by} ({med / bound_ms:.1f}x)")
+            res[label] = {"ms": med, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by}
+        log("times", f"{shape} bound: {work['words']} words, {spec_counts(seg)}; "
+                     f"group A {work['A_ops']} pattern ANDs, hits {work['hits']}; "
+                     f"{work['alu']:.4e} 32-bit ALU ops over {alu_peak:.4e} ops/s "
+                     f"({dev['sms']} SMs x {INT32_LANES_PER_SM} lanes x "
+                     f"{dev['max_sm_mhz']:.0f} MHz max SM clock), {work['popc']:.4e} "
+                     f"popcounts over {popc_peak:.4e} /s ({POPC_LANES_PER_SM} lanes); "
+                     f"against bytes over {HBM_BYTES_PER_S:.3e} B/s")
+        res["split"] = _split_times(shape, seg, dev, reps)
+    log("times", "library: no single PyTorch call computes either function")
     return out
 
 
@@ -542,7 +586,7 @@ def _split_bound(seg, x, dev: dict) -> tuple[float, str, dict]:
     return t_bytes * 1e3, "bytes", work
 
 
-def _split_times(seg, dev: dict, reps: int) -> dict:
+def _split_times(shape: str, seg, dev: dict, reps: int) -> dict:
     """The split kernel and its postlude on the same segment, each by CUDA
     events (median over reps after a warm-up); the split kernel's plain
     version by host clock; the split scalars against the fused ones."""
@@ -551,10 +595,11 @@ def _split_times(seg, dev: dict, reps: int) -> dict:
     for _ in range(3):
         words = launch_split(x)
     ms = _event_ms(lambda: launch_split(x), reps)
-    plain = [_host_ms(lambda: mark_split_reference(seg, device="cuda"))
+    plain = [_host_ms(lambda: mark_split_reference(seg, device="cuda",
+                                                   chunk_words=seg.Wpad))
              for _ in range(2)]
     if not torch.equal(launch_split(x), plain[0][1]):
-        raise AssertionError("timed segment: split kernel and plain version differ")
+        raise AssertionError(f"timed {shape}: split kernel and plain version differ")
     lists = tuple(x.part(n).to(torch.int64) for n in
                   ("corr_idx", "corr_mask", "flat_idx", "flat_mask"))
     ci, cm, fi, fm = lists[0], lists[1] & 0xFFFFFFFF, lists[2], lists[3] & 0xFFFFFFFF
@@ -565,17 +610,17 @@ def _split_times(seg, dev: dict, reps: int) -> dict:
     got = tuple(int(v) & 0xFFFFFFFF for v in post())
     want = mark_fused(seg, kind, device="cuda")
     if got != want:
-        raise AssertionError(f"timed segment: split {got} != fused {want}")
+        raise AssertionError(f"timed {shape}: split {got} != fused {want}")
     bound_ms, bound_by, work = _split_bound(seg, x, dev)
     med, post_med = statistics.median(ms), statistics.median(post_ms)
     plain_ms = min(t for t, _ in plain)
     post_bytes = 8 * seg.Wpad  # the postlude reads the words once
-    log("times", f"{dev['card']}: n=1e9 odds segment, split kernel median "
+    log("times", f"{dev['card']}: {shape}, split kernel median "
                  f"{med:.4f} ms (min {min(ms):.4f}, max {max(ms):.4f}, {reps} runs), "
                  f"plain version {plain_ms:.1f} ms, bound {bound_ms:.4f} ms by "
                  f"{bound_by} ({med / bound_ms:.1f}x): {work['alu']:.4e} ALU ops, "
                  f"hits {work['hits']}, {work['bytes']} bytes")
-    log("times", f"{dev['card']}: n=1e9 odds segment, postlude (torch ops, "
+    log("times", f"{dev['card']}: {shape}, postlude (torch ops, "
                  f"twins) median {post_med:.4f} ms (min {min(post_ms):.4f}, max "
                  f"{max(post_ms):.4f}, {reps} runs); reading its {post_bytes} "
                  f"bytes of int64 words once takes "
@@ -585,18 +630,108 @@ def _split_times(seg, dev: dict, reps: int) -> dict:
             "bound_by": bound_by, "postlude_ms": post_med}
 
 
+# spec groups of the tables; a variant of the inputs with only some live
+GROUPS = ("a", "b", "c", "d")
+GROUP_CONFIGS = ("all", "a", "b", "c", "d", "none")
 
 
-def main() -> int:
+def _only(x, config: str):
+    """A copy of the kernel inputs with the act columns of every group but
+    ``config`` ("all": none, "none": every one) set to 0, so the kernels
+    skip those specs; the flat clears and corrections stay."""
+    if config == "all":
+        return x
+    buf = x.buf.clone()
+    for g in GROUPS:
+        if g != config:
+            off, n = x.spans[f"{g}_act"]
+            buf[off : off + n] = 0
+    return dataclasses.replace(x, buf=buf)
+
+
+@contextlib.contextmanager
+def _library(lib):
+    """Route the wrappers' launches to ``lib``, another build of the
+    kernels behind the same C interface."""
+    old = build._lib
+    build._lib = lib
+    try:
+        yield
+    finally:
+        build._lib = old
+
+
+def phase_groups(dev: dict, others: dict | None = None, reps: int = 10) -> dict:
+    """Per timed shape and kernel (fused counting and split, each whole and
+    with one group live at a time; fused need_bits whole), the median by
+    CUDA events of this checkout's kernel and of each of ``others`` (label
+    -> a library built from another checkout), in turns: others, this,
+    this, others reversed, each turn after a warm-up. Each group's time is
+    the kernel's with only that group's specs live ("none": the fixed work
+    of the launch). Every other kernel's result must equal this one's.
+    Returns the medians by (shape, variant, config, label)."""
+    kind = pairs.TWIN_ADJ
+    others = others or {}
+    order = (list(others.items()) + [("this", build.load())] * 2
+             + list(reversed(others.items())))
+    variants = (("fused", lambda x: launch_fused(x, kind), GROUP_CONFIGS),
+                ("need_bits", lambda x: launch_fused(x, kind, True), ("all",)),
+                ("split", launch_split, GROUP_CONFIGS))
+    out = {}
+    for shape, seg in _time_shapes():
+        x0 = fused_inputs(seg, "cuda")
+        for variant, fn, configs in variants:
+            for config in configs:
+                x = _only(x0, config)
+                samples = {label: [] for label, _ in order}
+                results = {}
+                for label, lib in order:
+                    with _library(lib):
+                        for _ in range(2):
+                            fn(x)
+                        samples[label] += _event_ms(lambda: fn(x), reps)
+                        r = fn(x)
+                        results[label] = _as_u32(r[0] if variant != "split" else r)
+                for label in others:
+                    if not np.array_equal(results[label], results["this"]):
+                        raise AssertionError(f"{shape} {variant} {config}: this "
+                                             f"kernel and {label}'s differ")
+                med = {label: statistics.median(v) for label, v in samples.items()}
+                out.update({(shape, variant, config, label): v for label, v in med.items()})
+                line = (f"{dev['card']}: {shape} {variant:9s} live {config:4s}: "
+                        f"this {med['this']:.4f} ms ({len(samples['this'])} runs)")
+                for label in others:
+                    v = samples[label]
+                    line += (f"; {label} {med[label]:.4f} ms ({len(v)} runs, halves "
+                             f"{statistics.median(v[:reps]):.4f} "
+                             f"{statistics.median(v[reps:]):.4f}), "
+                             f"{med[label] / med['this']:.2f}x this")
+                log("groups", line)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", type=Path, action="append", default=[],
+                    help="a checkout of another commit, or a variant of these "
+                         "sources, whose kernels are timed in turns with these "
+                         "in the group phase (repeatable)")
+    args = ap.parse_args(argv)
     dev = phase_device()
     t0 = time.perf_counter()
     t_start = t0
     phase_build()
+    others = {}
+    for root in args.other:
+        src = root / "sieve_torch" / "kernels" / "csrc" / "fused_mark.cu"
+        info = build.build(force=True, source=src.resolve())
+        others[root.resolve().name] = build.bind(info["path"])
+        log("build", f"{root.resolve().name}: {src}: nvcc {info['seconds']:.1f} s")
     log("build", f"done in {time.perf_counter() - t0:.1f} s")
-    worst, worst_split = phase_kernel_vs_plain()
-    log("kernel", f"bit-exact on {len(CHECK_SEGMENTS) * len(KINDS)} "
-                  f"(segment, kind) pairs, max abs err fused {worst}, split "
-                  f"{worst_split} (tolerance 0: the arithmetic is integer)")
+    worst, worst_split, n_checked = phase_kernel_vs_plain()
+    log("kernel", f"bit-exact on {n_checked} (segment, kind) pairs, max abs err "
+                  f"fused {worst}, split {worst_split} (tolerance 0: the "
+                  "arithmetic is integer)")
     launches, expected, numpy_runs = phase_main_path()
     log("launches", f"mark_fused launched {launches} times for {expected} "
                     "device segments over the counting runs")
@@ -604,7 +739,8 @@ def main() -> int:
     log("launches", f"rounds path: mark_fused {rounds['launches']['fused']}, "
                     f"mark_split {rounds['launches']['split']} launches, one per "
                     "device segment of each mode")
-    times = phase_times(dev)
+    times = phase_times(dev)["n=1e9 odds segment"]
+    phase_groups(dev, others)
     log("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s")
     kernels = [{
         "name": "fused_mark",
@@ -613,10 +749,10 @@ def main() -> int:
         "replaces": "sieve/kernels/pallas_mark.py:694",
         "launches": launches + rounds["launches"]["fused"],
         "max_abs_err": worst,
-        "ms": times["ms"],
-        "plain_ms": times["plain_ms"],
-        "bound_ms": times["bound_ms"],
-        "bound_by": times["bound_by"],
+        "ms": times["counting"]["ms"],
+        "plain_ms": times["counting"]["plain_ms"],
+        "bound_ms": times["counting"]["bound_ms"],
+        "bound_by": times["counting"]["bound_by"],
         "library_ms": None,
     }, {
         "name": "split_mark",

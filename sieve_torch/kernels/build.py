@@ -68,30 +68,43 @@ def nvcc() -> str:
     )
 
 
-def library_path() -> Path:
-    """Where the kernel builds to: named by a hash of the source and flags."""
+def library_path(source: Path = SOURCE) -> Path:
+    """Where a source builds to: named by a hash of the source and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
+    h.update(source.read_bytes())
     return BUILD_DIR / f"libfused_mark-{h.hexdigest()[:16]}.so"
 
 
-def build(force: bool = False) -> dict:
-    """Compile the kernel unless its library exists (or ``force``).
-    Returns {"path", "seconds", "log", "cached"}; raises if nvcc fails."""
-    out = library_path()
+def build(force: bool = False, source: Path = SOURCE) -> dict:
+    """Compile ``source`` (this package's kernels unless another copy of
+    them is named) unless its library exists (or ``force``). Returns
+    {"path", "seconds", "log", "cached"}; raises if nvcc fails."""
+    out = library_path(source)
     if out.exists() and not force:
         return {"path": str(out), "seconds": 0.0, "log": "", "cached": True}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n{proc.stdout}")
+        raise RuntimeError(f"nvcc failed for {source.name}:\n{proc.stdout}")
     os.replace(tmp, out)
     return {"path": str(out), "seconds": time.perf_counter() - t0,
             "log": proc.stdout, "cached": False}
+
+
+def bind(path: str) -> ctypes.CDLL:
+    """Load a built library and declare its C entry points."""
+    lib = ctypes.CDLL(path)
+    lib.sieve_fused_mark.argtypes = ARGTYPES
+    lib.sieve_fused_mark.restype = ctypes.c_int
+    lib.sieve_split_mark.argtypes = SPLIT_ARGTYPES
+    lib.sieve_split_mark.restype = ctypes.c_int
+    lib.sieve_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.sieve_cuda_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def load() -> ctypes.CDLL:
@@ -99,12 +112,5 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build()["path"])
-            lib.sieve_fused_mark.argtypes = ARGTYPES
-            lib.sieve_fused_mark.restype = ctypes.c_int
-            lib.sieve_split_mark.argtypes = SPLIT_ARGTYPES
-            lib.sieve_split_mark.restype = ctypes.c_int
-            lib.sieve_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.sieve_cuda_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = bind(build()["path"])
         return _lib

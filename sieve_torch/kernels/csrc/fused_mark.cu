@@ -17,31 +17,40 @@
 // (sieve_torch/kernels/cuda_mark.py prepares them array for array as the
 // reference does) and share the marking phase, mark_tile.
 //
-// What bounds them. The fused kernel's inputs are a few spec tables and
-// its outputs a few scalars (plus the words with NEED_BITS), so it moves
-// almost no bytes: it is bound by integer operations. The function needs
-// one clear per hit: 32*Wpad/m for a spec of stride m (one pattern AND per
-// word for group A), plus the popcounts and pair splices per word. The
-// kernels do more: groups A-C test every (word, spec), (SA+SB+SC) per
-// word; group D walks its hits, but pays one % per (tile, live spec). The
-// split kernel adds a store of 4*Wpad bytes, which its marking outweighs.
+// What bounds them. The inputs are spec tables of a few hundred KB and the
+// outputs a few scalars (the split kernel and NEED_BITS add one store of
+// 4*Wpad bytes), so they move almost no bytes: they are bound by 32-bit
+// integer operations. The function needs one clear per hit: 32*Wpad/m
+// for a spec of stride m (one pattern AND per word for group A), plus the
+// popcounts and pair splices per word. A kernel that tests every (word,
+// spec) does ~10-30x that work, since a word holds a hit of group B or C
+// for only ~26 of its 553 specs.
 //
 // What the design does about it.
 //  - One block per (128 x 128)-word tile, the tile's 16,384 words in 64 KB
-//    of dynamic shared memory. The TPU walked tiles in order and carried
-//    the sums and the edge pair from tile to tile; here blocks run in
-//    parallel, each writes an 8-word partial, and a one-block combine
-//    kernel adds the partials and the pairs across tile edges.
-//  - Groups A-C: each thread keeps its 16 words in registers. The TPU had
-//    no integer divide and used an f32-reciprocal mod; here an exact
-//    integer % finds the first hit of the thread's first word, and the
-//    thread's next word (32 * 1024 bits further) steps the hit by one
-//    subtract and one conditional add, so the % runs twice per (thread,
-//    spec) instead of once per (word, spec).
-//  - Group D: the TPU had no scatter and placed each row's hit by a
-//    128-step lane roll. Here one thread per spec walks the spec's hits in
-//    the tile (at most one per 4096-bit row) and clears each with a
-//    shared-memory atomicAnd.
+//    of dynamic shared memory, two 1,024-thread blocks per SM. The TPU
+//    walked tiles in order and carried the sums and the edge pair from
+//    tile to tile; here blocks run in parallel, each writes an 8-word
+//    partial, and a one-block combine kernel adds the partials and the
+//    pairs across tile edges.
+//  - Group A (m < 32, several hits per word) keeps a register pattern:
+//    each thread ANDs a shifted m-periodic mask into its 16 words. The
+//    TPU had no integer divide and used an f32-reciprocal mod; here one
+//    exact % per (tile, spec) finds the tile's first hit, the thread's
+//    offset from it takes a multiply-high by a per-tile constant, and the
+//    next word's offset one subtract and one conditional add. The densest
+//    B specs (m < kRegisterMaxM, a hit every 1-3 words) take the same
+//    pass with a one-bit mask: there it costs less than one atomic per hit
+//    (PERF.md has the measured threshold).
+//  - The other B specs and groups C and D walk their hits in the tile
+//    instead of testing words: one % per (tile, spec) finds the first hit,
+//    each next hit is m bits further, and each hit is one shared-memory
+//    atomicAnd. The work is cut into items that warps take from a shared
+//    counter, largest first: a B spec (512-5,700 hits) is one item walked
+//    by the whole warp, lane l taking hits l, l+32, ...; 32 consecutive
+//    specs of group C or D are one item, a spec per lane (at most 512 hits
+//    each). The TPU had no scatter and placed group D's hits by a 128-step
+//    lane roll.
 //  - Flat clears (atomicAnd) and corrections (atomicOr) walk only the
 //    tile's own entries, through the per-tile cursors.
 //  - The split kernel stores the marked tile with coalesced 4-byte writes,
@@ -58,6 +67,11 @@ constexpr int kTileBits = kTileWords * 32;
 constexpr int kThreads = 1024;
 constexpr int kWordsPerThread = kTileWords / kThreads;
 constexpr int kGroupA = 16;                 // NA_PAD
+// B specs of the first kRegisterB slots with m < kRegisterMaxM hit a word
+// often enough that testing every word in registers beats walking them
+// (measured on the H100 against 0, 64, 128 and every B spec; PERF.md)
+constexpr int kRegisterB = 32;
+constexpr int kRegisterMaxM = 96;
 
 struct Tables {
   const int* a_m; const int* a_rk; const unsigned* a_act;
@@ -96,75 +110,139 @@ __device__ __forceinline__ unsigned block_sum(unsigned v, unsigned* scratch) {
   return warp < 1 ? warp_sum(v) : 0u;
 }
 
-// Groups A-C on the thread's words; SINGLE is false for group A, whose
-// strides m < 32 hit a word several times.
-template <bool SINGLE>
-__device__ __forceinline__ void mark_group(unsigned (&w)[kWordsPerThread],
-                                           const int* ms, const int* rks,
-                                           const unsigned* acts, int n,
-                                           int first_bit) {
-  for (int i = 0; i < n; ++i) {
-    const unsigned act = acts[i];
-    if (!act) continue;                     // padding: uniform over the block
-    const int m = ms[i];
-    const int step = (32 * kThreads) % m;
-    int t = (rks[i] - first_bit) % m;       // rK > 32 * Wpad > first_bit
-    unsigned pat = 1u;
-    if (!SINGLE)
-      for (int b = m; b < 32; b += m) pat |= 1u << b;
-#pragma unroll
-    for (int k = 0; k < kWordsPerThread; ++k) {
-      if (SINGLE) {
-        if (t < 32) w[k] &= ~((1u << t) & act);
-      } else {
-        w[k] &= ~((pat << t) & act);        // bits t, t+m, ... < 32
-      }
-      t -= step;
-      if (t < 0) t += m;
-    }
-  }
+// Clears every stride-th bit of the tile from bit b on, one shared-memory
+// atomicAnd each: the hits of one spec, or every 32nd of them.
+__device__ __forceinline__ void walk(unsigned* tile, int b, int stride) {
+  for (; b < kTileBits; b += stride)
+    atomicAnd(&tile[b >> 5], ~(1u << (b & 31)));
+}
+
+// Clears the hits of spec i of a C or D table in the tile.
+__device__ __forceinline__ void walk_spec(unsigned* tile, int tile_bit,
+                                          const int* ms, const int* rks,
+                                          const unsigned* acts, int i) {
+  const unsigned act = acts[i];             // the three loads at once
+  const int m = ms[i], rk = rks[i];
+  if (act) walk(tile, (rk - tile_bit) % m, m);
+}
+
+// Whether B slot i takes the register pass instead of the hit walk.
+__device__ __forceinline__ bool in_registers(int i, int m) {
+  return i < kRegisterB && m < kRegisterMaxM;
 }
 
 // The marking phase shared by both kernels (the reference's _mark_tile):
-// groups A-C in registers, then group D on the tile in shared memory.
-// Leaves tile t's marked words in `tile` and the thread's words
-// tid + k * kThreads in `w` (before group D), and ends synchronised.
+// group A and the densest B specs in registers, stored to the tile in
+// shared memory, then the hit walks of groups B, C and D on the tile.
+// Leaves tile t's marked words in `tile` and ends synchronised.
 __device__ __forceinline__ void mark_tile(const Tables& tb, int t,
-                                         unsigned (&w)[kWordsPerThread],
                                          unsigned* tile) {
-  const int base = t * kTileWords;
-  const int tid = threadIdx.x;
+  // per-tile constants of the register pass: slot i < kGroupA is A spec i,
+  // slot kGroupA + j is B spec j
+  __shared__ int r_off[kGroupA + kRegisterB];       // first hit in the tile
+  __shared__ unsigned r_magic[kGroupA + kRegisterB];  // x/m = umulhi(x, magic)
+  __shared__ int r_step[kGroupA + kRegisterB];      // (32 * kThreads) % m
+  __shared__ unsigned a_pat[kGroupA];               // bits 0, m, 2m, ... < 32
+  __shared__ int next_item;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int tile_bit = 32 * t * kTileWords;  // rK > 32 * Wpad > tile_bit
 
-  // --- groups A, B, C in registers: word k of this thread is
-  // base + tid + k * kThreads
+  // --- one % and one divide per (tile, spec) of the register pass
+  if (tid < kGroupA + kRegisterB) {
+    const bool is_a = tid < kGroupA;
+    const int i = is_a ? tid : tid - kGroupA;
+    if (is_a ? tb.a_act[i] != 0u
+             : i < tb.sb && tb.b_act[i] && in_registers(i, tb.b_m[i])) {
+      const int m = (is_a ? tb.a_m : tb.b_m)[i];
+      r_off[tid] = ((is_a ? tb.a_rk : tb.b_rk)[i] - tile_bit) % m;
+      r_magic[tid] = 0xFFFFFFFFu / m + 1u;  // exact while x * m < 2^32
+      r_step[tid] = (32 * kThreads) % m;
+      if (is_a) {
+        unsigned pat = 0u;
+        for (int b = 0; b < 32; b += m) pat |= 1u << b;
+        a_pat[i] = pat;
+      }
+    }
+  }
+  if (tid == 0) next_item = 0;
+  __syncthreads();
+
+  // --- the register pass: word k of this thread is tile word
+  // tid + k * kThreads, at bit x + k * 32 * kThreads of the tile, and
+  // s is (rK - its first bit) % m
+  unsigned w[kWordsPerThread];
 #pragma unroll
   for (int k = 0; k < kWordsPerThread; ++k) w[k] = 0xFFFFFFFFu;
-  const int first_bit = 32 * (base + tid);
-  mark_group<false>(w, tb.a_m, tb.a_rk, tb.a_act, kGroupA, first_bit);
-  mark_group<true>(w, tb.b_m, tb.b_rk, tb.b_act, tb.sb, first_bit);
-  mark_group<true>(w, tb.c_m, tb.c_rk, tb.c_act, tb.sc, first_bit);
+  const unsigned x = 32u * tid;
+  for (int i = 0; i < kGroupA; ++i) {       // group A: several bits a word
+    if (!tb.a_act[i]) continue;             // padding: uniform over the block
+    const int m = tb.a_m[i], step = r_step[i];
+    const unsigned pat = a_pat[i];
+    int s = r_off[i] - static_cast<int>(x - __umulhi(x, r_magic[i]) * m);
+    if (s < 0) s += m;
+#pragma unroll
+    for (int k = 0; k < kWordsPerThread; ++k) {
+      w[k] &= ~(pat << s);                  // bits s, s+m, ... < 32
+      s -= step;
+      if (s < 0) s += m;
+    }
+  }
+  const int nr = min(tb.sb, kRegisterB);
+  for (int i = 0; i < nr; ++i) {            // dense B specs: one bit or none
+    if (!tb.b_act[i]) continue;             // uniform over the block
+    const int m = tb.b_m[i];
+    if (!in_registers(i, m)) continue;
+    const int j = kGroupA + i, step = r_step[j];
+    int s = r_off[j] - static_cast<int>(x - __umulhi(x, r_magic[j]) * m);
+    if (s < 0) s += m;
+#pragma unroll
+    for (int k = 0; k < kWordsPerThread; ++k) {
+      w[k] &= ~__funnelshift_lc(0u, 1u, s);  // 1 << s, 0 past bit 31
+      s -= step;
+      if (s < 0) s += m;
+    }
+  }
 #pragma unroll
   for (int k = 0; k < kWordsPerThread; ++k) tile[tid + k * kThreads] = w[k];
   __syncthreads();
 
-  // --- group D: each spec walks its hits in the tile
-  const int tile_bit = 32 * base;
-  for (int i = tid; i < tb.nd; i += kThreads) {
-    if (!tb.d_act[i]) continue;
-    const int m = tb.d_m[i];
-    for (int b = (tb.d_rk[i] - tile_bit) % m; b < kTileBits; b += m)
-      atomicAnd(&tile[b >> 5], ~(1u << (b & 31)));
+  // --- the hit walks, in items that warps take from a shared counter,
+  // largest first: one per B spec (lane l takes its hits l, l+32, ...),
+  // then one per 32 C specs and one per 32 D specs (a spec per lane). A
+  // warp takes its next item before walking this one, so the counter's
+  // latency hides behind the walk.
+  const int nb = tb.sb;
+  const int nc = nb + (tb.sc + 31) / 32;
+  const int items = nc + (tb.nd + 31) / 32;
+  int item = 0;
+  if (lane == 0) item = atomicAdd(&next_item, 1);
+  item = __shfl_sync(0xFFFFFFFFu, item, 0);
+  while (item < items) {
+    int next = 0;
+    if (lane == 0) next = atomicAdd(&next_item, 1);
+    if (item < nb) {
+      const unsigned act = tb.b_act[item];
+      const int m = tb.b_m[item], rk = tb.b_rk[item];
+      if (act && !in_registers(item, m))
+        walk(tile, (rk - tile_bit) % m + lane * m, 32 * m);
+    } else if (item < nc) {
+      const int i = 32 * (item - nb) + lane;
+      if (i < tb.sc) walk_spec(tile, tile_bit, tb.c_m, tb.c_rk, tb.c_act, i);
+    } else {
+      const int i = 32 * (item - nc) + lane;
+      if (i < tb.nd) walk_spec(tile, tile_bit, tb.d_m, tb.d_rk, tb.d_act, i);
+    }
+    item = __shfl_sync(0xFFFFFFFFu, next, 0);
   }
   __syncthreads();
 }
 
 // Marking only: the raw words of tile t, padding past nbits included.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 split_mark_kernel(Tables tb, unsigned* __restrict__ words_out) {
   extern __shared__ unsigned tile[];
   const int t = blockIdx.x;
-  unsigned w[kWordsPerThread];
-  mark_tile(tb, t, w, tile);
+  mark_tile(tb, t, tile);
   unsigned* out = words_out + t * kTileWords;
 #pragma unroll
   for (int k = 0; k < kWordsPerThread; ++k)
@@ -172,7 +250,7 @@ split_mark_kernel(Tables tb, unsigned* __restrict__ words_out) {
 }
 
 template <bool NEED_BITS>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 fused_mark_kernel(Tables tb, unsigned* __restrict__ words_out,
                   unsigned* __restrict__ partials) {
   extern __shared__ unsigned tile[];
@@ -180,8 +258,8 @@ fused_mark_kernel(Tables tb, unsigned* __restrict__ words_out,
   const int t = blockIdx.x;
   const int base = t * kTileWords;
   const int tid = threadIdx.x;
+  mark_tile(tb, t, tile);
   unsigned w[kWordsPerThread];
-  mark_tile(tb, t, w, tile);
 
   // --- patches: flat clears before corrections (a flat class can cross
   // its own seed's bit, which the correction re-sets)
