@@ -9,19 +9,25 @@ on the card, drives the port's counting run and its rounds path (the
 n=1e11 streaming run, a split-mode checkpointed run and its resume) through
 their entry points at full size, checks that every device segment went
 through the kernel of its mode, and times the kernels and the split
-postlude, whole and with one spec group live at a time. Each ``--other
-DIR`` names a checkout of another commit (the parent, unpacked with ``git
-archive``) or a variant of these sources, whose kernels are built too and
-timed in turns with these in the group phase (others, this, this, others
-reversed), labelled by the directory's name. Each phase prints its lines;
-any failure raises, so the script exits non-zero and prints no result. The
-last three lines are the kernel table (JSON), the card's name and power
-limit, and the result line:
+postlude, whole and with one spec group live at a time. Phase ``words``
+does the same for the torch backend's word kernel (torch ops, not a hand
+kernel): against the cuda backend and its own CPU run, the n=1e9 counting
+run, the rounds path with a checkpoint and its resume, batched against
+sequential calls (one device, then every card), and its times beside the
+fused kernel's. Each ``--other DIR`` names a checkout of another commit
+(the parent, unpacked with ``git archive``) or a variant of these
+sources, whose kernels are built too and timed in turns with these in
+the group phase (others, this, this, others reversed), labelled by the
+directory's name. Each phase prints its lines; any failure raises, so the
+script exits non-zero and prints no result. The last three lines are the
+kernel table (JSON), the card's name and power limit, and the result
+line:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
-Exits non-zero when torch sees no CUDA device, and when run outside a
-checkout of the repository.
+The words phase prints its summary as a ``[words] {...}`` line before
+those three. Exits non-zero when torch sees no CUDA device, and when run
+outside a checkout of the repository.
 """
 
 from __future__ import annotations
@@ -42,12 +48,17 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
 
+from sieve_torch.backends.cuda import CudaWorker
+from sieve_torch.backends.mesh_backend import MeshWorker
+from sieve_torch.backends.torch_words import TorchWorker
 from sieve_torch.bitset import get_layout
 from sieve_torch.cli import main as sieve_torch_main
 from sieve_torch.config import SieveConfig
 from sieve_torch.coordinator import run_local
-from sieve_torch.kernels import build, pairs
+from sieve_torch.kernels import build, pairs, word_mark
 from sieve_torch.kernels.cuda_mark import (
     _SPLIT_ARRAYS,
     CudaChain,
@@ -64,6 +75,7 @@ from sieve_torch.kernels.cuda_mark import (
     split_reduce,
 )
 from sieve_torch.kernels.reduce import _postlude
+from sieve_torch.kernels.specs import MAX_WORDS, prepare_tiered
 from sieve_torch.parallel.mesh import run_mesh
 from sieve_torch.segments import plan_segments
 from sieve_torch.seed import seed_primes
@@ -333,7 +345,7 @@ def _log_rounds(what: str, got: dict, wall: float) -> None:
     log("rounds", f"{what}: pi {got['pi']} pairs {got['twin_pairs']} | run "
                   f"{got['elapsed_s']:.4f} s (wall {wall:.4f} s), "
                   f"{got['values_per_sec']:.4e} values/s, device_idle_frac "
-                  f"{ph['device_idle_frac']}, mode {ph['reduction_mode']} | "
+                  f"{ph['device_idle_frac']}, mode {ph.get('reduction_mode', 'words')} | "
                   f"prep {ph['prep_s']} s, prep_wait {ph['prep_wait_s']} s, "
                   f"stack {ph['stack_s']} s, dispatch {ph['dispatch_s']} s, "
                   f"drain {ph['drain_s']} s, rounds_prepared "
@@ -608,6 +620,7 @@ def _split_times(shape: str, seg, dev: dict, reps: int) -> dict:
         post()
     post_ms = _event_ms(post, reps)
     got = tuple(int(v) & 0xFFFFFFFF for v in post())
+    post_pass, post_ops = _pass_bytes(post)
     want = mark_fused(seg, kind, device="cuda")
     if got != want:
         raise AssertionError(f"timed {shape}: split {got} != fused {want}")
@@ -624,10 +637,13 @@ def _split_times(shape: str, seg, dev: dict, reps: int) -> dict:
                  f"twins) median {post_med:.4f} ms (min {min(post_ms):.4f}, max "
                  f"{max(post_ms):.4f}, {reps} runs); reading its {post_bytes} "
                  f"bytes of int64 words once takes "
-                 f"{post_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; split total "
+                 f"{post_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, and the "
+                 f"{post_pass:.4e} bytes its {post_ops} ops move "
+                 f"{post_pass / HBM_BYTES_PER_S * 1e3:.4f} ms; split total "
                  f"{med + post_med:.4f} ms")
     return {"ms": med, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "postlude_ms": post_med}
+            "bound_by": bound_by, "postlude_ms": post_med,
+            "postlude_pass_bytes": post_pass}
 
 
 # spec groups of the tables; a variant of the inputs with only some live
@@ -710,6 +726,284 @@ def phase_groups(dev: dict, others: dict | None = None, reps: int = 10) -> dict:
     return out
 
 
+def _is_view(func) -> bool:
+    """Whether an aten op returns a view of an input (moves no bytes)."""
+    view = getattr(func, "is_view", None)
+    if view is None:
+        view = any(r.alias_info is not None and not r.alias_info.is_write
+                   for r in func._schema.returns)
+    return bool(view)
+
+
+class _PassBytes(TorchDispatchMode):
+    """Counts the bytes that the torch ops run under it move on one device:
+    each op's tensor arguments read once and its outputs written once
+    (views move nothing; host tensors are left out)."""
+
+    def __init__(self, device: str):
+        super().__init__()
+        self.device = torch.device(device).type
+        self.bytes = 0
+        self.ops = 0
+
+    def _sum(self, tree) -> int:
+        return sum(t.numel() * t.element_size() for t in tree_flatten(tree)[0]
+                   if isinstance(t, torch.Tensor) and t.device.type == self.device)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not _is_view(func):
+            self.bytes += self._sum((args, kwargs)) + self._sum(out)
+            self.ops += 1
+        return out
+
+
+def _pass_bytes(fn, device="cuda") -> tuple[int, int]:
+    """(bytes, ops) of the passes one call of ``fn`` makes on ``device``."""
+    with _PassBytes(device) as m:
+        fn()
+    return m.bytes, m.ops
+
+
+def _fields(res) -> dict:
+    return dict(res.to_dict(), elapsed_s=0)
+
+
+def _tiered(packing, lo, hi, limit, gap):
+    seeds = seed_primes(limit if limit is not None else math.isqrt(hi - 1))
+    return prepare_tiered(packing, lo, hi, seeds, word_mark.TIER1_MAX,
+                          word_mark.SPEC_BLOCK, word_mark.WORD_BUCKET, pair_gap=gap)
+
+
+def _call_words(ts, kind, device, marked=None):
+    """mark_words on one TieredSegment; given ``marked`` (its marked words,
+    computed once), only the tail runs."""
+    if marked is not None:
+        return word_mark.pack4(*word_mark._tail(
+            marked, ts.nbits, kind, ts.pair_mask, ts.corr_idx, ts.corr_mask,
+            device))
+    return word_mark.mark_words(
+        ts.Wpad, kind, ts.periods, ts.nbits, ts.patterns, ts.m2, ts.r2, ts.K2,
+        ts.rcp2, ts.act2, ts.corr_idx, ts.corr_mask, ts.pair_mask, device=device)
+
+
+def _words_vs_cuda(device="cuda", segments=CHECK_SEGMENTS) -> int:
+    """(a) On every check segment whose words fit the word kernel, for each
+    kind: the torch backend equal to the cuda backend field for field; for
+    the segments up to n=1e8 also mark_words on the card equal to the same
+    function on the CPU (marked once, then each kind's tail). Returns the
+    number of (segment, kind) pairs held."""
+    cases = 0
+    for packing, lo, hi, limit, env in segments:
+        nbits = get_layout(packing).nbits(lo, hi)
+        wpad = -(-(-(-nbits // 32) + 1) // word_mark.WORD_BUCKET) * word_mark.WORD_BUCKET
+        if wpad > MAX_WORDS:
+            log("words", f"{packing} [{lo}, {hi}): {wpad} words > MAX_WORDS, skipped")
+            continue
+        seeds = seed_primes(limit if limit is not None else math.isqrt(hi - 1))
+        cpu_words = None
+        if hi <= 10**8 + 1:
+            ts = _tiered(packing, lo, hi, limit, 2)
+            cpu_words = word_mark._marked_words(
+                ts.Wpad, ts.periods, tuple(p[None] for p in ts.patterns),
+                ts.m2[None], ts.r2[None], ts.act2[None], "cpu")[0]
+        t0 = time.perf_counter()
+        for gapname, count_kind in zip(KINDS, COUNT_KINDS):
+            cfg = SieveConfig(n=hi - 1, backend="torch", device=device,
+                              packing=packing, count_kind=count_kind, quiet=True)
+            with env_set(env):
+                got = TorchWorker(cfg).process_segment(lo, hi, seeds, seg_id=1)
+                want = CudaWorker(dataclasses.replace(cfg, backend="cuda")
+                                  ).process_segment(lo, hi, seeds, seg_id=1)
+            if _fields(got) != _fields(want):
+                raise AssertionError(f"torch {_fields(got)} != cuda {_fields(want)} "
+                                     f"on {packing} [{lo}, {hi}) {gapname}")
+            verdict = "== cuda backend"
+            if cpu_words is not None:
+                ts = _tiered(packing, lo, hi, limit, 4 if gapname == "cousins" else 2)
+                kind = _kind(packing, gapname)
+                card = _call_words(ts, kind, device).cpu().tolist()
+                cpu = _call_words(ts, kind, "cpu", cpu_words).tolist()
+                if card != cpu:
+                    raise AssertionError(f"mark_words on the card {card} != on the "
+                                         f"CPU {cpu}: {packing} [{lo}, {hi}) {gapname}")
+                verdict += ", == the CPU"
+            cases += 1
+            log("words", f"{packing:7s} [{lo}, {hi}) {gapname:7s} nbits={nbits}: "
+                         f"count {got.count} pairs {got.twin_count} {verdict}")
+        log("words", f"  {time.perf_counter() - t0:.2f} s for the three kinds")
+    return cases
+
+
+def _check_calls(what: str, single: int, batch: int = 0) -> None:
+    got = (word_mark.mark_words.cuda_calls, word_mark.mark_words_batch.cuda_calls)
+    if got != (single, batch):
+        raise AssertionError(f"{what}: word-kernel calls on the card (single, batch) "
+                             f"= {got}, expected {(single, batch)}")
+
+
+def _reset_calls() -> None:
+    word_mark.mark_words.cuda_calls = word_mark.mark_words_batch.cuda_calls = 0
+
+
+def _words_main(device, sizes, numpy_runs) -> int:
+    """(b) The counting run at full size through the CLI, then n=1e8 per
+    packing x kind against cpu-numpy. Returns the calls on the card."""
+    calls = 0
+    n = sizes["mid"]
+    argv = ["--n", str(n), "--backend", "torch", "--twins", "--device", device]
+    _reset_calls()
+    got, wall = run_cli(argv)
+    want = _device_segments(n, "odds", 1)
+    _check_calls(" ".join(argv), want if device == "cuda" else 0)
+    _check_oracles(argv, got)
+    calls += word_mark.mark_words.cuda_calls
+    ph = got["host_phases"] or {}
+    log("words", f"sieve_torch {' '.join(argv[:5])}: pi {got['pi']} pairs "
+                 f"{got['twin_pairs']} | run {got['elapsed_s']:.4f} s, "
+                 f"{got['values_per_sec']:.4e} values/s (wall {wall:.4f} s) | prep "
+                 f"{ph.get('prep_s')} s | word-kernel calls on the card "
+                 f"{word_mark.mark_words.cuda_calls}/{want}")
+    small = sizes["small"]
+    for packing in PACKINGS:
+        for kind in COUNT_KINDS:
+            _reset_calls()
+            res = run_local(SieveConfig(n=small, packing=packing, n_segments=4,
+                                        count_kind=kind, backend="torch",
+                                        device=device, quiet=True))
+            want = _device_segments(small, packing, 4)
+            _check_calls(f"n={small} {packing} {kind}", want if device == "cuda" else 0)
+            calls += word_mark.mark_words.cuda_calls
+            if _strip(res) != _strip(numpy_runs[packing, kind]):
+                raise AssertionError(f"torch n={small} {packing} {kind} differs "
+                                     "from cpu-numpy")
+        log("words", f"n={small} {packing:7s} x {COUNT_KINDS}, 4 segments: "
+                     "== cpu-numpy segment for segment")
+    return calls
+
+
+def _words_rounds(device, sizes) -> int:
+    """(c) The rounds path on the word kernel: --rounds 4 against the
+    oracle, then --rounds 8 with a checkpoint dir and its resume, which
+    runs nothing. Returns the calls on the card."""
+    n = sizes["mid"]
+    on_card = device == "cuda"
+    calls = 0
+    argv = ["--n", str(n), "--backend", "torch", "--rounds", "4", "--twins",
+            "--device", device]
+    _reset_calls()
+    got, wall = run_cli(argv)
+    _check_calls(" ".join(argv), 4 if on_card else 0)
+    _check_oracles(argv, got)
+    calls += word_mark.mark_words.cuda_calls
+    _log_rounds("words: sieve_torch " + " ".join(argv[:7]), got, wall)
+    with tempfile.TemporaryDirectory(prefix="sieve_ckpt_") as ck:
+        argv = ["--n", str(n), "--backend", "torch", "--rounds", "8", "--twins",
+                "--checkpoint-dir", ck, "--device", device]
+        _reset_calls()
+        got, wall = run_cli(argv)
+        _check_calls(" ".join(argv), 8 if on_card else 0)
+        _check_oracles(argv, got)
+        calls += word_mark.mark_words.cuda_calls
+        _log_rounds("words: sieve_torch " + " ".join(argv[:7]) + " --checkpoint-dir",
+                    got, wall)
+        _reset_calls()
+        got, wall = run_cli(argv + ["--resume"])
+        _check_calls("resume", 0)
+        _check_oracles(argv, got)
+        if got["host_phases"]["rounds_prepared"] != 0:
+            raise AssertionError("the resumed run prepared rounds")
+        log("rounds", f"  words --resume: pi {got['pi']} pairs {got['twin_pairs']}, "
+                      f"0 calls, 0 rounds prepared (wall {wall:.4f} s)")
+    return calls
+
+
+def _words_batched(device="cuda", base=10**9, span=10**6, count=16) -> int:
+    """(d) process_segments on equal chunks above ``base`` (one shape
+    group) against process_segment, on the torch worker and on MeshWorker
+    over every card torch sees. Returns the batched calls on the card."""
+    segs = [(base + i * span, base + (i + 1) * span) for i in range(count)]
+    seeds = seed_primes(math.isqrt(segs[-1][1] - 1))
+    cfg = SieveConfig(n=segs[-1][1] - 1, backend="torch", device=device, twins=True,
+                      quiet=True)
+    w = TorchWorker(cfg)
+    sids = list(range(100, 100 + count))
+    seq = [_fields(w.process_segment(lo, hi, seeds, sid))
+           for (lo, hi), sid in zip(segs, sids)]
+    on_card = device == "cuda"
+    _reset_calls()
+    t0 = time.perf_counter()
+    got = [_fields(r) for r in w.process_segments(segs, seeds, seg_ids=sids)]
+    t_batch = time.perf_counter() - t0
+    _check_calls("TorchWorker.process_segments", 0, 1 if on_card else 0)
+    if got != seq:
+        raise AssertionError("batched process_segments differs from sequential")
+    mesh = MeshWorker(cfg)
+    _reset_calls()
+    got = [_fields(r) for r in mesh.process_segments(segs, seeds, seg_ids=sids)]
+    if mesh.launches != 1:
+        raise AssertionError(f"MeshWorker: {mesh.launches} launches for 1 group")
+    _check_calls("MeshWorker.process_segments", 0, mesh.devices if on_card else 0)
+    if got != seq:
+        raise AssertionError("MeshWorker process_segments differs from sequential")
+    log("words", f"{count} chunks of {span} values above {base}: one group; "
+                 f"batched == sequential (one call, {t_batch:.4f} s wall); "
+                 f"MeshWorker over {mesh.devices} card(s) == sequential, "
+                 f"launches {mesh.launches}")
+    return 1 + mesh.devices
+
+
+def _words_times(dev: dict) -> dict:
+    """(f) mark_words and the fused kernel on the same segments by CUDA
+    events (medians after a warm-up), mark_words by host clock around a
+    synchronised call too, and the bytes its passes move against the
+    memory rate. The two results must agree."""
+    out = {}
+    kind = pairs.TWIN_ADJ
+    for shape, hi, reps in (("n=1e9 odds segment", 10**9 + 1, 5),
+                            ("n=1e8 odds segment", 10**8 + 1, 10)):
+        ts = _tiered("odds", 2, hi, None, 2)
+        run = lambda: _call_words(ts, kind, "cuda")
+        want = run().cpu().tolist()
+        ms = _event_ms(run, reps)
+        host = min(_host_ms(run)[0] for _ in range(2))
+        nbytes, nops = _pass_bytes(run)
+        x = fused_inputs(_segment("odds", 2, hi, None, 2), "cuda")
+        for _ in range(3):
+            launch_fused(x, kind)
+        fused_ms = statistics.median(_event_ms(lambda: launch_fused(x, kind), 20))
+        fused = [int(v) for v in launch_fused(x, kind)[0].cpu().numpy().view(np.uint32)]
+        if fused != want:
+            raise AssertionError(f"{shape}: mark_words {want} != fused {fused}")
+        med = statistics.median(ms)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        live = int((ts.act2 != 0).sum())
+        log("words", f"{dev['card']}: {shape}, Wpad={ts.Wpad}, {len(ts.periods)} "
+                     f"tier-1 periods, {live} live tier-2 specs: mark_words median "
+                     f"{med:.4f} ms (min {min(ms):.4f}, max {max(ms):.4f}, {reps} runs; "
+                     f"host clock {host:.4f} ms); its {nops} ops move {nbytes:.4e} "
+                     f"bytes = {bound:.4f} ms at {HBM_BYTES_PER_S:.3e} B/s "
+                     f"({med / bound:.2f}x); fused kernel median {fused_ms:.4f} ms "
+                     f"({med / fused_ms:.1f}x faster than mark_words); both {want}")
+        out[shape] = {"ms": med, "host_ms": host, "pass_bytes": nbytes, "ops": nops,
+                      "bound_ms": bound, "fused_ms": fused_ms}
+    return out
+
+
+def phase_words(dev: dict | None, numpy_runs: dict, device="cuda",
+                sizes=None, segments=CHECK_SEGMENTS) -> dict:
+    """The torch backend's word path on the card, (a)-(f); see the
+    helpers. With ``dev`` None the times are not taken (a CPU rehearsal)."""
+    sizes = sizes or {"mid": 10**9, "small": 10**8, "batch_base": 10**9}
+    out = {"checked": _words_vs_cuda(device, segments)}
+    out["main_calls"] = _words_main(device, sizes, numpy_runs)
+    out["rounds_calls"] = _words_rounds(device, sizes)
+    out["batched_calls"] = _words_batched(device, sizes["batch_base"])
+    if dev is not None:
+        out["times"] = _words_times(dev)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, action="append", default=[],
@@ -718,30 +1012,54 @@ def main(argv=None) -> int:
                          "in the group phase (repeatable)")
     args = ap.parse_args(argv)
     dev = phase_device()
-    t0 = time.perf_counter()
-    t_start = t0
-    phase_build()
+    t_start = time.perf_counter()
+    spent = {}
+
+    def timed(name, fn, *a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        spent[name] = time.perf_counter() - t0
+        return out
+
+    timed("build", phase_build)
     others = {}
     for root in args.other:
         src = root / "sieve_torch" / "kernels" / "csrc" / "fused_mark.cu"
         info = build.build(force=True, source=src.resolve())
         others[root.resolve().name] = build.bind(info["path"])
         log("build", f"{root.resolve().name}: {src}: nvcc {info['seconds']:.1f} s")
-    log("build", f"done in {time.perf_counter() - t0:.1f} s")
-    worst, worst_split, n_checked = phase_kernel_vs_plain()
+    log("build", f"done in {time.perf_counter() - t_start:.1f} s")
+    worst, worst_split, n_checked = timed("kernel", phase_kernel_vs_plain)
     log("kernel", f"bit-exact on {n_checked} (segment, kind) pairs, max abs err "
                   f"fused {worst}, split {worst_split} (tolerance 0: the "
                   "arithmetic is integer)")
-    launches, expected, numpy_runs = phase_main_path()
+    launches, expected, numpy_runs = timed("main", phase_main_path)
     log("launches", f"mark_fused launched {launches} times for {expected} "
                     "device segments over the counting runs")
-    rounds = phase_rounds(numpy_runs=numpy_runs)
+    rounds = timed("rounds", phase_rounds, numpy_runs=numpy_runs)
     log("launches", f"rounds path: mark_fused {rounds['launches']['fused']}, "
                     f"mark_split {rounds['launches']['split']} launches, one per "
                     "device segment of each mode")
-    times = phase_times(dev)["n=1e9 odds segment"]
-    phase_groups(dev, others)
-    log("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s")
+    times = timed("times", phase_times, dev)["n=1e9 odds segment"]
+    timed("groups", phase_groups, dev, others)
+    words = timed("words", phase_words, dev, numpy_runs)
+    log("words", f"torch backend == cuda backend on {words['checked']} (segment, "
+                 f"kind) pairs; word-kernel calls on the card: {words['main_calls']} "
+                 f"(counting runs) + {words['rounds_calls']} (rounds), one per "
+                 f"device segment; {words['batched_calls']} batched")
+    log("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s: "
+                + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
+    wt = words["times"]
+    print("[words] " + json.dumps({
+        "name": "mark_words", "route": "torch ops",
+        "source": "sieve_torch/kernels/word_mark.py",
+        "counterpart": "sieve/kernels/jax_mark.py:204 (XLA, not Pallas)",
+        "calls": words["main_calls"] + words["rounds_calls"],
+        "checked": words["checked"],
+        **{shape: {k: v for k, v in t.items()} for shape, t in wt.items()},
+        "postlude": {"ms": times["split"]["postlude_ms"],
+                     "pass_bytes": times["split"]["postlude_pass_bytes"]},
+    }))
     kernels = [{
         "name": "fused_mark",
         "route": "cuda",

@@ -18,15 +18,29 @@ def _cpu_numpy(config: "SieveConfig") -> "SieveWorker":
     return CpuNumpyWorker(config)
 
 
+def _cpu_native(config: "SieveConfig") -> "SieveWorker":
+    from sieve_torch.backends.cpu_native import CpuNativeWorker
+
+    return CpuNativeWorker(config)
+
+
 def _cuda(config: "SieveConfig") -> "SieveWorker":
     from sieve_torch.backends.cuda import CudaWorker
 
     return CudaWorker(config)
 
 
+def _torch(config: "SieveConfig") -> "SieveWorker":
+    from sieve_torch.backends.torch_words import TorchWorker
+
+    return TorchWorker(config)
+
+
 WORKER_FACTORIES: dict[str, Callable[["SieveConfig"], "SieveWorker"]] = {
     "cpu-numpy": _cpu_numpy,
+    "cpu-native": _cpu_native,
     "cuda": _cuda,
+    "torch": _torch,
 }
 
 

@@ -4,13 +4,14 @@ Examples:
     python -m sieve_torch --n 1e9 --backend cuda --packing odds --twins
     python -m sieve_torch --n 1e11 --rounds 64 --twins
     python -m sieve_torch --n 1e10 --rounds 8 --checkpoint-dir ck [--resume]
+    python -m sieve_torch --n 1e9 --backend torch --rounds 4 --twins
 
-``--workers`` > 1 or ``--rounds`` > 1 on the cuda backend runs the rounds
-path (sieve_torch/parallel/mesh.py), one shard per card; anything else is
-the local run. Runs on the card unless ``--device cpu`` is given, which
-runs the kernels' plain PyTorch versions on the CPU. SIEVE_PALLAS_FUSED=0
-selects the split kernel and its postlude. The output lines are the
-reference CLI's.
+``--workers`` > 1 or ``--rounds`` > 1 on the cuda or torch backend runs
+the rounds path (sieve_torch/parallel/mesh.py), one shard per card;
+anything else is the local run. Runs on the card unless ``--device cpu``
+is given, which runs the cuda kernels' plain PyTorch versions, or the
+torch backend's ops, on the CPU. SIEVE_PALLAS_FUSED=0 selects the split
+kernel and its postlude. The output lines are the reference CLI's.
 """
 
 from __future__ import annotations
@@ -48,8 +49,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="sieve [2, N] inclusive (1e9 ok)")
     p.add_argument("--backend", choices=BACKENDS, default="cuda")
     p.add_argument("--device", default="cuda",
-                   help="torch device of the cuda backend: cuda (the "
-                        "kernel) or cpu (its plain version)")
+                   help="torch device of the cuda and torch backends: "
+                        "cuda (the card) or cpu")
     p.add_argument("--segments", type=int, default=None, dest="n_segments")
     p.add_argument("--segment-values", "--segment-size", type=int, default=None,
                    dest="segment_values",
@@ -96,7 +97,8 @@ def config_from_args(args: argparse.Namespace) -> SieveConfig:
 
 
 def _dispatch(config: SieveConfig) -> int:
-    if config.backend == "cuda" and (config.workers > 1 or config.rounds > 1):
+    if config.backend in ("cuda", "torch") and (
+            config.workers > 1 or config.rounds > 1):
         from sieve_torch.parallel.mesh import run_mesh
 
         result = run_mesh(config)

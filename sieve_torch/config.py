@@ -1,11 +1,13 @@
 """Typed run configuration of the PyTorch port.
 
 One frozen dataclass, serializable, everything on the config and nothing
-ambient — the shape of ``sieve.config.SieveConfig``. The port adds the
-``cuda`` backend (the hand-written Hopper kernel, counterpart of
-``tpu-pallas``) and a ``device`` field: entry points run on the card
-unless the caller asks for ``device="cpu"``, where the ``cuda`` backend
-runs its kernel's plain PyTorch version.
+ambient — the shape of ``sieve.config.SieveConfig``. The port's backends
+are ``cuda`` (the hand-written Hopper kernels, counterpart of
+``tpu-pallas``), ``torch`` (the word kernel in torch ops, counterpart of
+``jax``), ``cpu-numpy`` and ``cpu-native``. The ``device`` field places
+the device backends: entry points run on the card unless the caller asks
+for ``device="cpu"``, where the ``cuda`` backend runs its kernels' plain
+PyTorch versions and ``torch`` runs the same ops on the CPU.
 
 Fields that belong to parts of the system not ported yet are kept so a
 config can name them, and are refused with a message naming the slice
@@ -21,7 +23,7 @@ import math
 from typing import Any
 
 PACKINGS = ("plain", "odds", "wheel30")
-BACKENDS = ("cpu-numpy", "cuda")
+BACKENDS = ("cpu-numpy", "cpu-native", "cuda", "torch")
 # --count-kind: which reduction runs on the marked bitset. All kinds share
 # the same marking kernel — only the splice shift and pair mask at the
 # reduction differ (primes = count only; twins = p, p+2; cousins = p, p+4).
@@ -31,8 +33,8 @@ PAIR_GAPS = {"primes": 0, "twins": 2, "cousins": 4}
 # field -> the later slice of the port that brings it
 LATER_SLICES = {
     "multihost": "multihost (multi-GPU across hosts, torch.distributed)",
-    "chaos": "cluster",
-    "chaos_kill": "cluster",
+    "chaos": "service and cluster",
+    "chaos_kill": "service and cluster",
 }
 
 
@@ -61,8 +63,8 @@ class SieveConfig:
     rounds: int = 1
     quiet: bool = False
     json_output: bool = False
-    # torch device of the ``cuda`` backend: "cuda" (the kernel) or "cpu"
-    # (its plain version). Left out of config_hash like ``backend``.
+    # torch device of the ``cuda`` and ``torch`` backends: "cuda" (the
+    # card) or "cpu". Left out of config_hash like ``backend``.
     device: str = "cuda"
     multihost: bool = False
     chaos: str | None = None

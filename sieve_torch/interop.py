@@ -7,8 +7,12 @@ strings — so this module imports nothing of the reference:
   - ``segment_from_reference(dataclasses.asdict(pallas_segment))`` gives
     the port's CudaSegment, so the reference's kernel and the port's can
     be fed the very same tables;
+  - ``tiered_from_reference(dataclasses.asdict(tiered_segment))`` gives
+    the port's TieredSegment, so both word kernels can be fed the same
+    tables;
   - ``config_from_reference(sieve_config.to_dict())`` gives the port's
-    SieveConfig, with ``tpu-pallas`` mapped to ``cuda``; its checkpoint
+    SieveConfig, with ``tpu-pallas`` mapped to ``cuda`` and ``jax`` to
+    ``torch``; its checkpoint
     dir and ``resume`` carry over, and a ledger written by either package
     resumes under the other (same file format, same config hash).
 """
@@ -22,15 +26,13 @@ import numpy as np
 
 from sieve_torch.config import SieveConfig
 from sieve_torch.kernels.cuda_mark import CudaSegment
+from sieve_torch.kernels.specs import TieredSegment
 
 # reference backend -> port backend
-BACKEND_MAP = {"tpu-pallas": "cuda", "cpu-numpy": "cpu-numpy"}
+BACKEND_MAP = {"tpu-pallas": "cuda", "jax": "torch", "cpu-numpy": "cpu-numpy",
+               "cpu-native": "cpu-native"}
 # reference backend -> the later slice of the port that brings it
-BACKEND_SLICES = {
-    "jax": "torch word-kernel backend",
-    "cpu-native": "tools and bench",
-    "cpu-cluster": "cluster",
-}
+BACKEND_SLICES = {"cpu-cluster": "service and cluster"}
 # reference-only fields -> the slice that brings them (rejected when set)
 FIELD_SLICES = {
     "profile_dir": "tracing",
@@ -41,20 +43,32 @@ FIELD_SLICES = {
 _FIELD_DEFAULTS = {"coordinator_addr": "127.0.0.1:7621"}
 
 
-def segment_from_reference(d: dict[str, Any]) -> CudaSegment:
-    """CudaSegment from ``dataclasses.asdict`` of the reference's
-    PallasSegment (same field names, numpy arrays and ints)."""
+def _fields_from(cls, d: dict[str, Any]):
+    """A dataclass of numpy arrays, tuples of them and ints from the
+    reference's ``dataclasses.asdict`` of its counterpart."""
     kw = {}
-    for f in dataclasses.fields(CudaSegment):
+    for f in dataclasses.fields(cls):
         v = d[f.name]
         if isinstance(v, (tuple, list)):
-            v = tuple(np.asarray(a) for a in v)
+            v = tuple(int(a) if np.ndim(a) == 0 else np.asarray(a) for a in v)
         elif isinstance(v, np.ndarray):
             v = np.asarray(v)
         else:
             v = int(v)
         kw[f.name] = v
-    return CudaSegment(**kw)
+    return cls(**kw)
+
+
+def segment_from_reference(d: dict[str, Any]) -> CudaSegment:
+    """CudaSegment from ``dataclasses.asdict`` of the reference's
+    PallasSegment (same field names, numpy arrays and ints)."""
+    return _fields_from(CudaSegment, d)
+
+
+def tiered_from_reference(d: dict[str, Any]) -> TieredSegment:
+    """TieredSegment from ``dataclasses.asdict`` of the reference's
+    TieredSegment: the word kernel's tables as plain arrays."""
+    return _fields_from(TieredSegment, d)
 
 
 def config_from_reference(d: dict[str, Any], device: str = "cuda") -> SieveConfig:

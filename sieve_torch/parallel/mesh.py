@@ -9,13 +9,16 @@ runs on the CPU with ``device="cpu"``. A run that asks for more shards
 than there are cards raises; nothing falls back to fewer cards or to the
 CPU.
 
-Per round each shard runs the fused kernel, or under SIEVE_PALLAS_FUSED=0
-the split kernel and its postlude, on its own device (fixed once per
-run). The shards' uint32[4] results meet on the first shard's device,
-where ``_collective_merge`` sums the counts and the pairs plus the odds
-twins that straddle two shards (the reference's psum and ppermute), and
-packs one vector, which crosses to the host in one copy per round. The
-host then cross-checks it against its own sums and merges with the same
+Per round each shard runs, on its own device, the backend's device code:
+for ``cuda`` the fused kernel, or under SIEVE_PALLAS_FUSED=0 the split
+kernel and its postlude (fixed once per run); for ``torch`` the word
+kernel (kernels/word_mark.py), at one padded width for every shard and
+round, bucketed by the reference's WORD_BUCKET rule. The shards'
+uint32[4] results meet on the first shard's device, where
+``_collective_merge`` sums the counts and the pairs plus the odds twins
+that straddle two shards (the reference's psum and ppermute), and packs
+one vector, which crosses to the host in one copy per round. The host
+then cross-checks it against its own sums and merges with the same
 ``merge_results`` as the local run.
 
 Rounds overlap: background threads prepare round k+window
@@ -26,9 +29,11 @@ every drained segment is recorded, and ``resume`` prepares nothing for
 the rounds the ledger holds.
 
 The reference pads every shard's tables to one shape per round
-(``pad_pallas``, ``ND_BUCKET``), because its compiled step is specialised
-to array shapes. A CUDA launch takes the table sizes as arguments, so
-here each shard launches with its own tables and nothing is padded.
+(``pad_pallas``, ``ND_BUCKET``, and the word kernel's tier-2 and
+correction padding), because its compiled step is specialised to array
+shapes. A CUDA launch and a torch op take the table sizes as they come,
+so here each shard runs with its own tables and nothing is padded (the
+padding is inert in the reference too).
 """
 
 from __future__ import annotations
@@ -53,6 +58,13 @@ from sieve_torch.kernels.cuda_mark import (
     split_reduce,
 )
 from sieve_torch.kernels.pairs import pair_kind
+from sieve_torch.kernels.specs import TieredChain
+from sieve_torch.kernels.word_mark import (
+    SPEC_BLOCK,
+    TIER1_MAX,
+    WORD_BUCKET,
+    mark_words,
+)
 from sieve_torch.parallel.pipeline import PrepPipeline
 from sieve_torch.seed import seed_primes
 from sieve_torch.segments import plan_segments, validate_plan
@@ -134,8 +146,9 @@ def run_mesh(config: SieveConfig) -> SieveResult:
     """Run the sieve one segment per shard per round. Falls back to the
     local coordinator for ranges too small to shard meaningfully."""
     cfg = config
-    if cfg.backend != "cuda":
-        raise ValueError(f"the rounds path runs the cuda backend, not {cfg.backend!r}")
+    if cfg.backend not in ("cuda", "torch"):
+        raise ValueError(f"the rounds path runs the cuda backend or the torch "
+                         f"backend, not {cfg.backend!r}")
     t0 = time.perf_counter()
     ndev = cfg.workers
     devices = shard_devices(cfg.device, ndev)
@@ -166,14 +179,41 @@ def run_mesh(config: SieveConfig) -> SieveResult:
     seeds = seed_primes(cfg.seed_limit)
     twin_kind = pair_kind(cfg)
     pgap = cfg.pair_gap or 2
-    # one padded width for every shard and round: it is baked into every
-    # spec's rK offset, so it is fixed before any grouping
-    Wmax = max(-(-layout.nbits(s.lo, s.hi) // 32) for s in segs)
-    Wpad = -(-(Wmax + 1) // TILE_WORDS) * TILE_WORDS
-    # the reduction mode is fixed once per run, so every round runs and
-    # cross-checks the same path
-    fused = fused_enabled()
-    reduce = fused_reduce if fused else split_reduce
+    Wseg = [-(-layout.nbits(s.lo, s.hi) // 32) for s in segs]
+    if cfg.backend == "cuda":
+        # one padded width for every shard and round: it is baked into
+        # every spec's rK offset, so it is fixed before any grouping
+        Wpad = -(-(max(Wseg) + 1) // TILE_WORDS) * TILE_WORDS
+        # the reduction mode is fixed once per run, so every round runs
+        # and cross-checks the same path
+        fused = fused_enabled()
+        reduce = fused_reduce if fused else split_reduce
+
+        def make_chain():
+            return CudaChain(cfg.packing, seeds, Wpad, pair_gap=pgap)
+
+        stage = fused_inputs    # the tables to the shard's card
+
+        def launch(x):
+            return reduce(x, twin_kind)
+    else:
+        # the reference's word-kernel width: the largest segment's, by
+        # WORD_BUCKET; each shard's torch ops copy their own tables
+        Wpad = max(-(-(W + 1) // WORD_BUCKET) * WORD_BUCKET for W in Wseg)
+
+        def make_chain():
+            return TieredChain(cfg.packing, seeds, TIER1_MAX, SPEC_BLOCK,
+                               WORD_BUCKET, pair_gap=pgap)
+
+        def stage(prep, dev):
+            return prep, dev
+
+        def launch(x):
+            ts, dev = x
+            return mark_words(Wpad, twin_kind, ts.periods, ts.nbits,
+                              ts.patterns, ts.m2, ts.r2, ts.K2, ts.rcp2,
+                              ts.act2, ts.corr_idx, ts.corr_mask,
+                              ts.pair_mask, device=dev)
 
     ledger = Ledger.open(cfg) if cfg.checkpoint_dir else None
     done: dict[int, SegmentResult] = {}
@@ -248,7 +288,7 @@ def run_mesh(config: SieveConfig) -> SieveResult:
     ]
     pipeline = PrepPipeline(
         todo,
-        lambda: CudaChain(cfg.packing, seeds, Wpad, pair_gap=pgap),
+        make_chain,
         lambda chain, rnd: [
             chain.prepare(s.lo, s.hi) for s in segs[rnd * ndev : (rnd + 1) * ndev]
         ],
@@ -275,13 +315,13 @@ def run_mesh(config: SieveConfig) -> SieveResult:
                     fv = layout.first_candidate(batch[i + 1].lo)
                     if fv - lv == 2 and fv <= cfg.n:
                         gap_ok[i] = 1
-            inputs = [fused_inputs(p, d) for p, d in zip(preps, devices)]
+            inputs = [stage(p, d) for p, d in zip(preps, devices)]
             t_stack = time.perf_counter()
             spent["stack"] += t_stack - t_prep
             if device_starved:
                 spent["device_idle"] += t_stack - rt0
             packed = _collective_merge(
-                [reduce(x, twin_kind) for x in inputs], gap_ok, devices[0])
+                [launch(x) for x in inputs], gap_ok, devices[0])
             pending.append((batch, nbits_v, _fetch_async(packed), rt0))
             spent["dispatch"] += time.perf_counter() - t_stack
             while len(pending) > window:
@@ -319,8 +359,9 @@ def run_mesh(config: SieveConfig) -> SieveResult:
             round(values_prepared / prep_s, 1) if prep_s > 0 else None
         ),
         **{f"prep_{k}_s": round(v, 6) for k, v in chain_phases.items()},
-        "reduction_mode": "fused" if fused else "split",
     }
+    if cfg.backend == "cuda":
+        host_phases["reduction_mode"] = "fused" if fused else "split"
     return SieveResult(
         n=cfg.n,
         pi=pi,

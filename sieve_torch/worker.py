@@ -91,5 +91,28 @@ class SieveWorker(abc.ABC):
     ) -> SegmentResult:
         ...
 
+    def process_segments(
+        self,
+        segments: list[tuple[int, int]],
+        seed_primes: np.ndarray,
+        seg_ids: list[int] | None = None,
+    ) -> list[SegmentResult]:
+        """Batched seam: sieve a list of [lo, hi) segments in one call.
+        The default loops :meth:`process_segment`; device backends override
+        it to stack the segments into one dispatch. ``seed_primes`` must
+        cover the largest ``hi`` (a superset is safe). Results come back
+        in input order, carrying ``seg_ids[i]`` (default ``i``)."""
+        if seg_ids is None:
+            seg_ids = list(range(len(segments)))
+        if len(seg_ids) != len(segments):
+            raise ValueError(
+                f"process_segments: {len(segments)} segments but "
+                f"{len(seg_ids)} seg_ids"
+            )
+        return [
+            self.process_segment(lo, hi, seed_primes, seg_id=sid)
+            for (lo, hi), sid in zip(segments, seg_ids)
+        ]
+
     def close(self) -> None:
         """Release backend resources (device buffers)."""

@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, nothing of ``sieve``, no silent CPU.
 
   - a fresh interpreter runs ``python -m sieve_torch --n 1e5 --device cpu``
-    (the entry point, through runpy) and imports every module of the package, and neither ``jax`` nor
-    ``sieve`` is loaded afterwards; no source file of the package (nor
+    on the cuda backend and on the torch backend (the entry point, through
+    runpy) and imports every module of the package, and neither ``jax``
+    nor ``sieve`` is loaded afterwards; no source file of the package (nor
     chip_smoke.py) names them in an import;
   - asking for the card where there is none raises a clear error instead
     of running on the CPU;
@@ -51,19 +52,22 @@ def test_no_forbidden_imports(path):
 _PROBE = """
 import io, contextlib, json, pkgutil, importlib, runpy, sys
 buf = io.StringIO()
+rcs = []
 with contextlib.redirect_stdout(buf):
-    sys.argv = ["sieve_torch", "--n", "1e5", "--device", "cpu", "--count-kind",
-                "cousins", "--packing", "wheel30", "--segments", "3"]
-    try:
-        runpy.run_module("sieve_torch", run_name="__main__")
-    except SystemExit as e:
-        rc = e.code
+    for backend in ("cuda", "torch"):
+        sys.argv = ["sieve_torch", "--n", "1e5", "--device", "cpu", "--count-kind",
+                    "cousins", "--packing", "wheel30", "--segments", "3",
+                    "--backend", backend]
+        try:
+            runpy.run_module("sieve_torch", run_name="__main__")
+        except SystemExit as e:
+            rcs.append(e.code)
 import sieve_torch
 mods = [m.name for m in pkgutil.walk_packages(sieve_torch.__path__, "sieve_torch.")
         if m.name != "sieve_torch.__main__"]  # importing it runs the CLI
 for m in mods:
     importlib.import_module(m)
-print(json.dumps({"rc": rc, "out": buf.getvalue(), "modules": mods,
+print(json.dumps({"rcs": rcs, "out": buf.getvalue(), "modules": mods,
                   "after": sorted(sys.modules)}))
 """
 
@@ -76,12 +80,17 @@ def test_run_loads_no_jax_and_no_sieve():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     got = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert got["rc"] == 0
+    assert got["rcs"] == [0, 0]
     lines = got["out"].splitlines()
-    assert lines[:2] == ["pi(100000) = 9592", "cousin pairs (p, p+4 <= 100000) = 1216"]
-    assert lines[2].startswith("backend=cuda packing=wheel30 segments=3 ")
+    for i, backend in enumerate(("cuda", "torch")):
+        assert lines[3 * i : 3 * i + 2] == [
+            "pi(100000) = 9592", "cousin pairs (p, p+4 <= 100000) = 1216"]
+        assert lines[3 * i + 2].startswith(f"backend={backend} packing=wheel30 segments=3 ")
     assert {"sieve_torch.kernels.cuda_mark", "sieve_torch.backends.cuda",
-            "sieve_torch.interop", "sieve_torch.kernels.build"} <= set(got["modules"])
+            "sieve_torch.interop", "sieve_torch.kernels.build",
+            "sieve_torch.kernels.word_mark", "sieve_torch.backends.torch_words",
+            "sieve_torch.backends.mesh_backend", "sieve_torch.backends.cpu_native",
+            } <= set(got["modules"])
     loaded = [m for m in got["after"] if _forbidden(m)]
     assert not loaded, f"the port loaded {loaded}"
 

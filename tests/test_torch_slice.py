@@ -161,7 +161,7 @@ def test_carried_config_hash(kw):
 
 
 @pytest.mark.parametrize("field,value,slice_name", [
-    ("backend", "jax", "word-kernel"),
+    ("profile_dir", "prof", "tracing"),
     ("backend", "cpu-cluster", "cluster"),
     ("chaos", "kill:1@s2", "cluster"),
     ("multihost", True, "multi-GPU"),
