@@ -19,6 +19,10 @@ worker processes on the card (checkpointed, resumed, a worker killed)
 and on cpu-native workers; phase ``multihost`` runs ``--multihost`` ranks
 as processes of this script (``chip_smoke.py --rank <CLI arguments>``):
 two gloo ranks sharing the card and their resume, and one NCCL rank.
+Phase ``service`` serves a ledger the card wrote through the port's data
+plane: the read-only ledger, the tiered store seeded from it, the
+segment index (prefix counts, nth, a batch) with chunks demoted into the
+store and read back from a second handle, and ``--emit-primes``.
 Each ``--other DIR`` names a checkout of another commit
 (the parent, unpacked with ``git archive``) or a variant of these
 sources, whose kernels are built too and timed in turns with these in
@@ -30,9 +34,9 @@ line:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
-The words, cluster and multihost phases print their summaries as
-``[words] {...}``, ``[cluster] {...}`` and ``[multihost] {...}`` lines
-before those three. Exits non-zero when torch sees no CUDA device, and when run
+The words, cluster, multihost and service phases print their summaries
+as ``[words] {...}``, ``[cluster] {...}``, ``[multihost] {...}`` and
+``[service] {...}`` lines before those three. Exits non-zero when torch sees no CUDA device, and when run
 outside a checkout of the repository.
 """
 
@@ -1315,6 +1319,126 @@ def phase_multihost(local_segments: list[dict], device="cuda", sizes=None) -> di
     return out
 
 
+# --- the service's data plane --------------------------------------------------
+
+SERVICE_SIZES = {"n": 10**10, "segments": 16}
+# the largest prime below n, for the nth() and --emit-primes checks
+LAST_PRIME = {10**6: 999_983, 10**7: 9_999_991, 10**9: 999_999_937,
+              10**10: 9_999_999_967}
+
+
+def _emit(argv: list[str]) -> tuple[str, float]:
+    """``python3 -m sieve_torch <argv>`` as its own process; (stdout, wall s)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sieve_torch", *argv],
+                          cwd=Path(__file__).resolve().parent, capture_output=True,
+                          text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m sieve_torch {' '.join(argv)} exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout, wall
+
+
+def phase_service(device="cuda", sizes=None) -> dict:
+    """The service's data plane over a ledger the card wrote: the counting
+    run with a checkpoint (its fused launches counted), the ledger opened
+    read-only, a tiered store seeded from it, a SieveIndex with a one-entry
+    LRU (so chunks demote into the store) answering prefix counts, nth and
+    a batch exactly; the store reopened from a second handle answering the
+    interior query from tier 2 with no new materialization; and
+    ``--emit-primes`` as its own process, text and --json."""
+    from sieve_torch.checkpoint import Ledger
+    from sieve_torch.cli import build_parser, config_from_args
+    from sieve_torch.service import QueryCtx, SieveIndex, StoreSettings, TieredSegmentStore
+
+    sizes = sizes or SERVICE_SIZES
+    n, nseg = sizes["n"], sizes["segments"]
+    interior = n // 10  # strictly inside a segment of the plan (checked below)
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="sieve_svc_") as ck:
+        argv = ["--n", str(n), "--twins", "--segments", str(nseg), "--checkpoint-dir",
+                ck, "--backend", "cuda", "--device", device]
+        mark_fused.launches = mark_split.launches = 0
+        got, wall = run_cli(argv)
+        out["launches"] = mark_fused.launches
+        want = _device_segments(n, "odds", nseg) if on_card else 0
+        _check_launches("service: the counting run", want, 0)
+        if got["pi"] != PI[n] or got["twin_pairs"] != TWINS[n]:
+            raise AssertionError(f"service run: pi {got['pi']} twins {got['twin_pairs']}")
+        log("service", f"sieve_torch {' '.join(argv[:7])}: pi {got['pi']} pairs "
+                       f"{got['twin_pairs']} | run {got['elapsed_s']:.4f} s (wall "
+                       f"{wall:.4f} s) | fused launches {out['launches']}/{want}")
+
+        cfg = config_from_args(build_parser().parse_args(argv))
+        ledger = Ledger.open_readonly(cfg)
+        if ledger.unverified or len(ledger.completed()) != nseg:
+            raise AssertionError(f"read-only ledger: unverified {ledger.unverified}, "
+                                 f"{len(ledger.completed())} segments")
+        root = str(Path(ck) / "store")
+        settings = StoreSettings(compact_s=0.0)
+        t_q = time.perf_counter()
+        store = TieredSegmentStore(root, writer=True, settings=settings)
+        rows = ledger.store_tier0_entries()
+        store.import_ledger(rows)
+        tier0 = [(lo, hi, c) for lo, hi, c, tier in store.export_counts() if tier == 0]
+        if tier0 != rows:
+            raise AssertionError("the store's tier-0 export != the ledger's rows")
+        idx = SieveIndex("odds", ledger.completed(), lru_segments=1, store=store)
+        if interior in idx.bounds:
+            raise AssertionError(f"{interior} is a segment boundary, not an interior point")
+        last = LAST_PRIME[n]
+        checks = [("count_upto", interior, idx.count_upto, PI[interior]),
+                  ("count_upto", idx.covered_hi, idx.count_upto, PI[n]),
+                  ("nth", PI[interior], idx.nth, LAST_PRIME[interior]),
+                  ("nth", PI[n], idx.nth, last)]
+        for name, arg, fn, want_v in checks:
+            v = fn(arg, QueryCtx())
+            if v != want_v:
+                raise AssertionError(f"{name}({arg}) = {v}, expected {want_v}")
+            log("service", f"  {name}({arg}) = {v}")
+        points = [interior, idx.covered_hi, 2, interior - 1]
+        batch = idx.count_upto_batch(points, QueryCtx()).tolist()
+        scalar = [idx.count_upto(v, QueryCtx()) for v in points]
+        if batch != scalar:
+            raise AssertionError(f"count_upto_batch {batch} != count_upto {scalar}")
+        out["queries_s"] = time.perf_counter() - t_q
+        out["index"] = idx.stats()
+        out["store"] = store.stats()
+        store.close()
+
+        reopened = TieredSegmentStore(root, writer=False, settings=settings)
+        idx2 = SieveIndex("odds", ledger.completed(), lru_segments=1, store=reopened)
+        ctx = QueryCtx()
+        t_r = time.perf_counter()
+        v = idx2.count_upto(interior, ctx)
+        out["reopened_query_s"] = time.perf_counter() - t_r
+        out["reopened_index"] = idx2.stats()
+        out["reopened_store"] = reopened.stats()
+        reopened.close()
+        if v != PI[interior] or not ctx.store_hit or ctx.materialized or idx2.materialized:
+            raise AssertionError(f"reopened store: count_upto({interior}) = {v}, "
+                                 f"store_hit {ctx.store_hit}, materialized "
+                                 f"{idx2.materialized}")
+        log("service", f"  reopened from a second handle: count_upto({interior}) = {v} "
+                       f"from {out['reopened_store']['hits']} store hits, 0 sieved")
+
+    window = f"{interior - 100}:{interior}"
+    text, out["emit_wall_s"] = _emit(["--emit-primes", window])
+    listed, out["emit_json_wall_s"] = _emit(["--emit-primes", window, "--json"])
+    lines = text.splitlines()
+    if not lines or lines[-1] != str(LAST_PRIME[interior]):
+        raise AssertionError(f"--emit-primes {window} ended {lines[-1:]}")
+    if json.loads(listed) != [int(x) for x in lines]:
+        raise AssertionError(f"--emit-primes {window} --json != the text form")
+    log("service", f"  --emit-primes {window}: {len(lines)} primes, last {lines[-1]} "
+                   f"({out['emit_wall_s']:.3f} s; --json {out['emit_json_wall_s']:.3f} s)")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, action="append", default=[],
@@ -1362,6 +1486,9 @@ def main(argv=None) -> int:
     multihost = timed("multihost", phase_multihost, cluster["local_segments"])
     log("launches", f"distributed planes: mark_fused {cluster['launches']} on the "
                     f"cluster's workers, {multihost['launches']} on the ranks")
+    service = timed("service", phase_service)
+    log("launches", f"service: mark_fused {service['launches']} in the counting run "
+                    "that wrote the served ledger")
     log("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s: "
                 + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
     wt = words["times"]
@@ -1378,13 +1505,14 @@ def main(argv=None) -> int:
     print("[cluster] " + json.dumps(
         {"launches": cluster["launches"], **cluster["runs"]}))
     print("[multihost] " + json.dumps(multihost))
+    print("[service] " + json.dumps(service))
     kernels = [{
         "name": "fused_mark",
         "route": "cuda",
         "source": "sieve_torch/kernels/csrc/fused_mark.cu",
         "replaces": "sieve/kernels/pallas_mark.py:694",
         "launches": (launches + rounds["launches"]["fused"] + cluster["launches"]
-                     + multihost["launches"]),
+                     + multihost["launches"] + service["launches"]),
         "max_abs_err": worst,
         "ms": times["counting"]["ms"],
         "plain_ms": times["counting"]["plain_ms"],

@@ -76,6 +76,11 @@ class Layout:
         v = np.arange(lo, hi, dtype=np.int64)
         return v[[self.is_candidate(int(x)) for x in v]]
 
+    def values_np(self, lo: int, bit_idx: np.ndarray) -> np.ndarray:
+        """Candidate values at segment-local bit indices (vectorized inverse
+        of bit_of; used by prime enumeration)."""
+        raise NotImplementedError
+
     # --- marking -----------------------------------------------------------------
     def mark_numpy(self, flags: np.ndarray, lo: int, hi: int, p: int) -> None:
         """Clear composite bits for prime p (p not in wheel_primes).
@@ -131,6 +136,9 @@ class PlainLayout(Layout):
             return
         flags[start - first :: p] = False
 
+    def values_np(self, lo: int, bit_idx: np.ndarray) -> np.ndarray:
+        return self.first_candidate(lo) + bit_idx.astype(np.int64)
+
     def pairs_internal(self, flags: np.ndarray, lo: int, hi: int,
                        gap: int = 2) -> int:
         if flags.size <= gap:
@@ -175,6 +183,9 @@ class OddsLayout(Layout):
             return
         b0 = (start - first) // 2
         flags[b0::p] = False  # stride p in value space == stride p in bit space
+
+    def values_np(self, lo: int, bit_idx: np.ndarray) -> np.ndarray:
+        return self.first_candidate(lo) + 2 * bit_idx.astype(np.int64)
 
     def pairs_internal(self, flags: np.ndarray, lo: int, hi: int,
                        gap: int = 2) -> int:
@@ -221,6 +232,11 @@ class Wheel30Layout(Layout):
                 continue
             b0 = self.gidx(v0) - g0
             flags[b0 :: 8 * p] = False  # v += 30p  =>  gidx += 8p
+
+    def values_np(self, lo: int, bit_idx: np.ndarray) -> np.ndarray:
+        res = np.array(WHEEL30_RESIDUES, dtype=np.int64)
+        g = self.gidx(self.first_candidate(lo)) + bit_idx.astype(np.int64)
+        return 30 * (g // 8) + res[g % 8]
 
     # residue indices whose gidx-NEXT candidate sits exactly `gap` above:
     # gap=2 -> (11,13), (17,19), (29,31); gap=4 -> (7,11), (13,17), (19,23)
@@ -321,3 +337,82 @@ def boundary_words(flags: np.ndarray) -> tuple[int, int]:
 def popcount_words(words: np.ndarray) -> int:
     """Population count of a uint32 word array (byte lookup)."""
     return int(np.unpackbits(words.view(np.uint8)).sum())
+
+
+# --- wheel-210 value-space codec ---------------------------------------------
+#
+# The tiered segment store compresses prime sets in *value* space with a
+# mod-210 wheel: 48 of every 210 integers are coprime to 2*3*5*7, so a
+# set of primes >= 11 over [lo, hi) costs 48 bits (6 bytes) per
+# 210-block regardless of which flag layout materialized it. The four
+# wheel primes {2, 3, 5, 7} cannot be represented on the wheel and ride
+# in a 4-bit side mask. The codec is the reference's, bit for bit.
+
+WHEEL210_RESIDUES = tuple(
+    r for r in range(210)
+    if r % 2 and r % 3 and r % 5 and r % 7
+)
+assert len(WHEEL210_RESIDUES) == 48
+_W210_IDX = np.full(210, -1, dtype=np.int64)
+for _i, _r in enumerate(WHEEL210_RESIDUES):
+    _W210_IDX[_r] = _i
+_W210_RES = np.array(WHEEL210_RESIDUES, dtype=np.int64)
+_W210_SMALL = (2, 3, 5, 7)
+
+
+def _w210_nbits(lo: int, hi: int) -> int:
+    if hi <= lo:
+        return 0
+    return 48 * ((hi - 1) // 210 - lo // 210 + 1)
+
+
+def pack_wheel210(lo: int, hi: int, values: np.ndarray) -> tuple[bytes, int]:
+    """Pack a set of prime values in [lo, hi) -> (payload, small_mask).
+
+    ``values`` must all be prime (every value >= 11 must be coprime to
+    210 — a composite candidate that survived would be silently lost, so
+    this raises instead). ``small_mask`` bit i records the presence of
+    ``(2, 3, 5, 7)[i]``. Payload is 6 bytes per 210-block covering
+    [lo, hi), bit ``48*(v//210 - lo//210) + idx(v % 210)`` = v present.
+    """
+    values = np.asarray(values, dtype=np.int64)
+    small_mask = 0
+    for i, p in enumerate(_W210_SMALL):
+        if np.any(values == p):
+            small_mask |= 1 << i
+    wl = values[values >= 11]
+    res_idx = _W210_IDX[wl % 210]
+    if res_idx.size and int(res_idx.min()) < 0:
+        bad = wl[res_idx < 0][:3]
+        raise ValueError(
+            f"pack_wheel210: non-prime values {bad.tolist()} share a factor "
+            "with 210 and cannot ride the wheel"
+        )
+    nbits = _w210_nbits(lo, hi)
+    bits = np.zeros(nbits, dtype=bool)
+    bits[48 * (wl // 210 - lo // 210) + res_idx] = True
+    return np.packbits(bits, bitorder="little").tobytes(), small_mask
+
+
+def unpack_wheel210(lo: int, hi: int, payload: bytes,
+                    small_mask: int) -> np.ndarray:
+    """Inverse of pack_wheel210: sorted int64 prime values in [lo, hi)."""
+    nbits = _w210_nbits(lo, hi)
+    need = (nbits + 7) // 8
+    if len(payload) < need:
+        raise ValueError(
+            f"unpack_wheel210: payload {len(payload)}B < {need}B "
+            f"for [{lo}, {hi})"
+        )
+    bits = np.unpackbits(
+        np.frombuffer(payload, dtype=np.uint8), bitorder="little"
+    )[:nbits]
+    g = np.flatnonzero(bits)
+    vals = 210 * (lo // 210 + g // 48) + _W210_RES[g % 48]
+    small = np.array(
+        [p for i, p in enumerate(_W210_SMALL) if small_mask >> i & 1],
+        dtype=np.int64,
+    )
+    if small.size:
+        vals = np.concatenate([small, vals])
+    return vals[(vals >= lo) & (vals < hi)]

@@ -28,7 +28,8 @@ fault-free and every composed scenario ends.
 from __future__ import annotations
 
 import dataclasses
-import threading
+
+from sieve_torch.analysis.lockdebug import named_lock
 
 ANY_WORKER = -1  # "any@sK": whichever worker draws segment K
 KINDS = (
@@ -165,7 +166,7 @@ class ChaosSchedule:
     and returns every directive matching the assignment, as wire dicts."""
 
     def __init__(self, directives: list[ChaosDirective]):
-        self._lock = threading.Lock()
+        self._lock = named_lock("ChaosSchedule._lock")
         self._pending = list(directives)  # guard: _lock
 
     def __len__(self) -> int:
@@ -173,8 +174,16 @@ class ChaosSchedule:
             return len(self._pending)
 
     def take(self, worker_id: int, seg_id: int) -> list[dict]:
+        return self.take_kinds(worker_id, seg_id, None)
+
+    def take_kinds(self, worker_id: int, seg_id: int,
+                   kinds: tuple[str, ...] | None) -> list[dict]:
+        """Like :meth:`take`, but only consume directives whose kind is in
+        ``kinds`` (None = all): a plane that numbers its own "segments"
+        (the store's append counter) draws only its own kinds."""
         with self._lock:
-            hit = [d for d in self._pending if d.matches(worker_id, seg_id)]
+            hit = [d for d in self._pending if d.matches(worker_id, seg_id)
+                   and (kinds is None or d.kind in kinds)]
             if hit:
                 taken = set(map(id, hit))
                 self._pending = [d for d in self._pending if id(d) not in taken]

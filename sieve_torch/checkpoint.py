@@ -32,6 +32,16 @@ Corruption handling on open:
 
 ``--resume`` replays the merge over ledger + remaining segments; a
 config-hash mismatch refuses to resume (the math would differ).
+
+Readers (the query service's index and store) use
+:meth:`Ledger.open_readonly`: a snapshot open that verifies the checksum
+but never quarantines, salvages or flushes, so a reader cannot race the
+coordinator's atomic replace or steal its recovery. A file that vanishes
+between the existence check and the read (the coordinator's quarantine
+``os.replace``) reads as an empty snapshot; a checksum-less version-1
+file loads with :attr:`Ledger.unverified` set. A read-only ledger
+refuses :meth:`Ledger.record`. Cold write-back entries key on
+``COLD_SEG_BASE + lo``, far above any run's segment ids.
 """
 
 from __future__ import annotations
@@ -52,6 +62,11 @@ if TYPE_CHECKING:
 
 LEDGER_NAME = "sieve_ledger.json"
 LEDGER_VERSION = 2
+
+# cold write-back entries key on COLD_SEG_BASE + lo: far above any
+# sieving run's seg_id space, deterministic per chunk (idempotent
+# re-record), and unique because chunks at distinct lo never collide
+COLD_SEG_BASE = 1 << 40
 
 # completed-dict entries: '"<seg_id>": {flat object}' — SegmentResult
 # serializations are flat, so a non-greedy brace match per entry is exact
@@ -112,6 +127,12 @@ class Ledger:
         # recovered)
         self.salvaged = 0
         self.quarantined: str | None = None
+        self.read_only = False
+        # read-only provenance: the loaded payload's content checksum
+        # (computed for v1 files, which carry none; unverified is then
+        # True so callers can emit a ledger_unverified warning)
+        self.checksum: str | None = None
+        self.unverified = False
 
     @classmethod
     def open(cls, config: "SieveConfig") -> "Ledger":
@@ -153,6 +174,52 @@ class Ledger:
             ledger.salvaged = salvaged
             ledger.quarantined = str(quarantined)
             ledger._flush()  # rewrite a clean, checksummed ledger now
+        return ledger
+
+    @classmethod
+    def open_readonly(cls, config: "SieveConfig") -> "Ledger":
+        """Snapshot open for readers: verify, never mutate.
+
+        Unlike :meth:`open`, a corrupt file is not quarantined or salvaged
+        and nothing is flushed back. A missing ledger is an empty
+        snapshot, and so is a file that vanishes between the existence
+        check and the read (the coordinator's quarantine ``os.replace``
+        window), never an escaped ``FileNotFoundError``.
+        """
+        assert config.checkpoint_dir is not None
+        path = Path(config.checkpoint_dir) / LEDGER_NAME
+        chash = config.config_hash()
+        entries: dict[int, dict] = {}
+        unverified = False
+        checksum: str | None = None
+        try:
+            text = path.read_text() if path.exists() else None
+        except FileNotFoundError:
+            text = None  # quarantined out from under us mid-open
+        if text is not None:
+            data, corrupt = cls._parse(text)
+            if data is None:
+                raise LedgerCorrupt(
+                    f"ledger at {path} is corrupt ({corrupt}); refusing "
+                    "read-only open. Run the owning coordinator (which "
+                    "quarantines and salvages) or restore a known-good "
+                    "ledger."
+                )
+            if data.get("config_hash") != chash:
+                raise LedgerMismatch(
+                    f"ledger at {path} was written for config_hash="
+                    f"{data.get('config_hash')}, reader expects {chash}; "
+                    "the segment counts would describe a different sieve"
+                )
+            entries = {int(k): v for k, v in data.get("completed", {}).items()}
+            unverified = "checksum" not in data
+            checksum = data.get("checksum") or _payload_checksum(
+                chash, data.get("completed") or {}
+            )
+        ledger = cls(path, chash, entries)
+        ledger.read_only = True
+        ledger.unverified = unverified
+        ledger.checksum = checksum
         return ledger
 
     @staticmethod
@@ -205,8 +272,28 @@ class Ledger:
             f"(delete {qpath} once investigated)."
         )
 
+    def recorded_hi(self, seg_id: int) -> int:
+        """``hi`` of the entry currently recorded under ``seg_id`` (0 if
+        none): the cold write-back skips a clipped recompute of a chunk
+        already persisted to a larger hi, so coverage never shrinks."""
+        e = self._entries.get(seg_id)
+        return int(e.get("hi", 0)) if e else 0
+
     def completed(self) -> dict[int, SegmentResult]:
         return {k: SegmentResult.from_dict(v) for k, v in self._entries.items()}
+
+    def store_tier0_entries(self) -> list[tuple[int, int, int]]:
+        """Tier import seam for the segment store: every completed
+        segment as sorted ``(lo, hi, count)``. The elected writer seeds
+        the store's tier 0 from these, and the store's export
+        (``TieredSegmentStore.export_counts``) round-trips them."""
+        out: list[tuple[int, int, int]] = []
+        for e in self._entries.values():
+            try:
+                out.append((int(e["lo"]), int(e["hi"]), int(e["count"])))
+            except (KeyError, TypeError, ValueError):
+                continue
+        return sorted(out)
 
     def record(self, res: SegmentResult) -> None:
         """Idempotent: the ledger keys on segment id, so a segment processed
@@ -216,6 +303,11 @@ class Ledger:
     def record_many(self, results: list[SegmentResult]) -> None:
         """Record a batch of results with ONE atomic fsync'd flush: a crash
         leaves either the whole batch or none of it."""
+        if self.read_only:
+            raise LedgerMismatch(
+                f"ledger at {self.path} was opened read-only; record() is "
+                "reserved for the owning coordinator"
+            )
         if not results:
             return
         for res in results:
@@ -223,6 +315,7 @@ class Ledger:
         self._flush()
 
     def _flush(self) -> None:
+        assert not self.read_only, "read-only ledger must never flush"
         completed = {str(k): v for k, v in self._entries.items()}
         payload = {
             "version": LEDGER_VERSION,

@@ -9,6 +9,7 @@ Examples:
         python -m sieve_torch --n 1e10 --twins --backend cpu-cluster --workers 2
     python -m sieve_torch --n 1e10 --twins --workers 2 --rounds 8 --multihost \
         --dist-coordinator 127.0.0.1:29500 --dist-processes 2 --dist-process-id 0
+    python -m sieve_torch --emit-primes 999999900:1000000000 [--json]
 
 ``--workers`` > 1 or ``--rounds`` > 1 on the cuda or torch backend runs
 the rounds path (sieve_torch/parallel/mesh.py), one shard per card;
@@ -19,6 +20,8 @@ path across processes (sieve_torch/parallel/dist.py); ``--workers`` is
 then the global shard count and only rank 0 prints. Runs on the card
 unless ``--device cpu`` is given, which runs the cuda kernels' plain
 PyTorch versions, or the torch backend's ops, on the CPU.
+``--emit-primes LO:HI`` prints the primes of a window instead (``--n`` is
+then not needed); like the reference it marks on the host with numpy.
 SIEVE_PALLAS_FUSED=0 selects the split kernel and its postlude. The flags
 and output lines are the reference CLI's; the reference's ``--jax-*``
 spellings of the ``--dist-*`` flags are accepted too.
@@ -55,8 +58,11 @@ def build_parser() -> argparse.ArgumentParser:
         description="Segmented Sieve of Eratosthenes on an NVIDIA GPU "
                     "(PyTorch port)",
     )
-    p.add_argument("--n", type=_parse_n, required=True,
+    p.add_argument("--n", type=_parse_n, default=None,
                    help="sieve [2, N] inclusive (1e9 ok)")
+    p.add_argument("--emit-primes", default=None, metavar="LO:HI",
+                   help="print the primes in [LO, HI] inclusive (one per "
+                        "line; --json for a JSON array) instead of counting")
     p.add_argument("--backend", choices=BACKENDS, default="cuda")
     p.add_argument("--device", default="cuda",
                    help="torch device of the cuda and torch backends: "
@@ -235,9 +241,43 @@ def _dispatch(args: argparse.Namespace, config: SieveConfig) -> int:
     return 0
 
 
+def _emit_primes(args: argparse.Namespace) -> int:
+    from sieve_torch.enumerate import primes_in_range
+
+    try:
+        lo_s, hi_s = args.emit_primes.split(":")
+        lo, hi = _parse_n(lo_s), _parse_n(hi_s)
+    except (ValueError, argparse.ArgumentTypeError):
+        raise ValueError(f"--emit-primes expects LO:HI, got {args.emit_primes!r}")
+    chunks = primes_in_range(args.packing, lo, hi + 1)
+    if args.json_output:
+        # stream the array chunk by chunk: the max span's output is GBs
+        sys.stdout.write("[")
+        first = True
+        for c in chunks:
+            if c.size:
+                if not first:
+                    sys.stdout.write(", ")
+                sys.stdout.write(", ".join(map(str, c.tolist())))
+                first = False
+        sys.stdout.write("]\n")
+    else:
+        for c in chunks:
+            sys.stdout.write("\n".join(map(str, c.tolist())))
+            if c.size:
+                sys.stdout.write("\n")
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     try:
+        if args.emit_primes is not None:
+            return _emit_primes(args)
+        if args.n is None:
+            print("sieve_torch: error: --n is required (or use --emit-primes)",
+                  file=sys.stderr)
+            return 2
         return _run(args, config_from_args(args))
     except (ValueError, RuntimeError) as e:
         # NotImplementedError is a RuntimeError: unported parts say which slice

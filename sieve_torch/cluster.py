@@ -69,6 +69,7 @@ import traceback
 import numpy as np
 
 from sieve_torch import env, trace
+from sieve_torch.analysis.lockdebug import named_lock
 from sieve_torch.chaos import ChaosSchedule
 from sieve_torch.checkpoint import Ledger
 from sieve_torch.config import SieveConfig
@@ -503,7 +504,7 @@ class _Cluster:
         self.ledger = ledger
         self.queue: queue.Queue = queue.Queue()
         self.done: dict[int, SegmentResult] = {}  # guard: lock
-        self.lock = threading.Lock()
+        self.lock = named_lock("_Cluster.lock")
         self.n_expected = len(segments)
         self.all_done = threading.Event()
         self.attempts: dict[int, int] = {}  # guard: lock
@@ -511,7 +512,7 @@ class _Cluster:
         # one run id stamps every assign's trace context; shipped telemetry
         # and clock samples accumulate per worker until the merge
         self.run_id = os.urandom(4).hex()
-        self.tele_lock = threading.Lock()
+        self.tele_lock = named_lock("_Cluster.tele_lock")
         self.telemetry: dict[int, list[dict]] = {}   # guard: tele_lock
         self.worker_registry: dict[int, dict] = {}   # guard: tele_lock
         self.tele_dropped: dict[int, int] = {}       # guard: tele_lock

@@ -24,6 +24,7 @@ import time
 from typing import Any, Callable, Sequence
 
 from sieve_torch import env
+from sieve_torch.analysis.lockdebug import named_condition
 
 
 class PrepPipeline:
@@ -53,7 +54,7 @@ class PrepPipeline:
                 self.capacity, 2
             )
         nthreads = max(1, min(threads, self.capacity, max(1, len(self.rounds))))
-        self._cond = threading.Condition()
+        self._cond = named_condition("PrepPipeline._cond")
         self._next = 0          # index into rounds of the next unclaimed round
         self._consumed = 0      # rounds handed back through take()
         self._ready: dict[int, Any] = {}

@@ -10,13 +10,13 @@ from __future__ import annotations
 
 import collections
 import math
-import threading
-
 import numpy as np
+
+from sieve_torch.analysis.lockdebug import named_lock
 
 _CACHE_SIZE = 8  # distinct limits kept (largest seed set ~628 KB at 1e7)
 _cache: "collections.OrderedDict[int, np.ndarray]" = collections.OrderedDict()
-_cache_lock = threading.Lock()
+_cache_lock = named_lock("seed._cache_lock")
 
 
 def seed_primes(limit: int) -> np.ndarray:

@@ -19,15 +19,25 @@ one timeline. A cluster worker captures into a bounded drop-oldest ring
 (``set_event_limit`` / ``drain_events``) and ships its events on its
 replies; the coordinator rebases them with :class:`ClockAlign` and folds
 them in with ``ingest``, so one ``--trace`` file holds every process.
+
+For the service plane the tracer also keeps each thread's open-span
+stack (``active_label``, the profiler's span tag), a second bounded ring
+of request-scoped spans (those whose args carry a ``ctx``) that the
+exemplar sampler collects at request completion (``exemplar_enable`` /
+``exemplar_collect``), and ``tail``, ``pending``, ``reset`` and
+``total_s``.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import threading
 import time
 from typing import Any, TextIO
+
+from sieve_torch.analysis.lockdebug import named_lock
 
 # one monotonic epoch for the whole process
 _EPOCH = time.perf_counter()
@@ -36,6 +46,36 @@ _EPOCH = time.perf_counter()
 def now_s() -> float:
     """Seconds since the process trace epoch (monotonic)."""
     return time.perf_counter() - _EPOCH
+
+
+# Per-thread open-span stacks, the profiler's span tag: each thread only
+# ever mutates its own list with single GIL-atomic dict/list operations,
+# so neither the span hot path nor the sampler's cross-thread read locks.
+_ACTIVE_SPANS: dict[int, list] = {}
+
+
+def active_label(tid: int | None = None) -> str | None:
+    """The innermost open span name on thread ``tid`` (calling thread when
+    None), or None. A race with the owner's push/pop yields a stale label,
+    never a crash."""
+    stack = _ACTIVE_SPANS.get(tid if tid is not None else threading.get_ident())
+    if not stack:
+        return None
+    try:
+        return stack[-1]
+    except IndexError:
+        return None  # owner popped between the check and the read
+
+
+def _ex_root(ctx: str) -> str:
+    """The root request context of a span ctx, ``run_id/seq.attempt`` (the
+    first two ``/``-separated parts): every span of one request tree shares
+    it, so it is the exemplar ring's bucket key."""
+    first = ctx.find("/")
+    if first < 0:
+        return ctx
+    second = ctx.find("/", first + 1)
+    return ctx if second < 0 else ctx[:second]
 
 
 class Span:
@@ -51,12 +91,20 @@ class Span:
         self.elapsed = 0.0
 
     def __enter__(self) -> "Span":
+        tid = threading.get_ident()
+        stack = _ACTIVE_SPANS.get(tid)
+        if stack is None:
+            stack = _ACTIVE_SPANS[tid] = []
+        stack.append(self.name)
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> bool:
         t1 = time.perf_counter()
         self.elapsed = t1 - self.t0
+        stack = _ACTIVE_SPANS.get(threading.get_ident())
+        if stack:
+            stack.pop()
         self._tracer._record(self.name, self.t0 - _EPOCH, t1 - _EPOCH, self.args)
         return False
 
@@ -66,7 +114,7 @@ class Tracer:
     Chrome trace-event capture."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = named_lock("Tracer._lock")
         self.enabled = False
         self._events: list[dict] = []  # guard: _lock
         self._totals: dict[str, list] = {}  # guard: _lock; name -> [s, count]
@@ -79,6 +127,16 @@ class Tracer:
         # interval, however often the instrument changes
         self._counter_interval_us = 10_000.0
         self._counter_seen: dict[str, float] = {}
+        # exemplar capture: a second bounded ring of request-scoped spans
+        # (args carry a ``ctx``), fed whether or not capture is on and
+        # bucketed by root request context, so a keep collects one
+        # request's spans; eviction drops whole oldest-request buckets.
+        # Entries are raw tuples of atomic values (GC-untracked). 0 = off.
+        self._ex_limit = 0  # guard: _lock
+        self._ex_spans: collections.OrderedDict[str, list[tuple]] = \
+            collections.OrderedDict()  # guard: _lock
+        self._ex_count = 0  # guard: _lock
+        self._ex_dropped = 0  # guard: _lock
 
     # --- recording -----------------------------------------------------------
 
@@ -95,6 +153,15 @@ class Tracer:
             tot[1] += 1
             if self.enabled:
                 self._append_event(name, t0, t1, args)
+            if self._ex_limit and args and "ctx" in args:
+                root = _ex_root(str(args["ctx"]))
+                bucket = self._ex_spans.get(root)
+                if bucket is None:
+                    bucket = self._ex_spans[root] = []
+                bucket.append((name, t0, t1, threading.get_ident(),
+                               str(args["ctx"]), tuple(args.items())))
+                self._ex_count += 1
+                self._ex_trim_locked()
 
     def add_span(self, name: str, t0: float, duration_s: float, **args: Any) -> None:
         """Record an already-measured interval (``t0`` is a :func:`now_s`
@@ -185,19 +252,31 @@ class Tracer:
 
     # --- control / export ----------------------------------------------------
 
-    def enable(self) -> None:
-        """Start capturing events; the buffer is cleared so each capture
-        session stands alone (aggregation totals are kept)."""
+    def enable(self, clear: bool = True) -> None:
+        """Start capturing events; by default the buffer is cleared so each
+        capture session stands alone (aggregation totals are kept)."""
         with self._lock:
-            self._events.clear()
-            self._tids_named.clear()
-            self._counter_seen.clear()
-            self._dropped = 0
+            if clear:
+                self._events.clear()
+                self._tids_named.clear()
+                self._counter_seen.clear()
+                self._dropped = 0
             self.enabled = True
 
     def disable(self) -> None:
         with self._lock:
             self.enabled = False
+
+    def reset(self) -> None:
+        with self._lock:
+            self._events.clear()
+            self._totals.clear()
+            self._tids_named.clear()
+            self._counter_seen.clear()
+            self._dropped = 0
+            self._ex_spans.clear()
+            self._ex_count = 0
+            self._ex_dropped = 0
 
     def set_event_limit(self, max_events: int | None) -> None:
         """Bound the capture buffer to ``max_events`` (None = unbounded);
@@ -205,6 +284,17 @@ class Tracer:
         with self._lock:
             self._max_events = max_events
             self._trim()
+
+    @property
+    def dropped(self) -> int:
+        """Events evicted by the ring limit since the last fresh enable."""
+        with self._lock:
+            return self._dropped
+
+    def pending(self) -> int:
+        """Captured events not yet drained."""
+        with self._lock:
+            return len(self._events)
 
     def drain_events(self) -> tuple[list[dict], int]:
         """Take (and clear) the captured events; returns ``(events,
@@ -233,6 +323,79 @@ class Tracer:
         with self._lock:
             return list(self._events)
 
+    def tail(self, n: int) -> list[dict]:
+        """The newest ``n`` captured events without draining (the flight
+        recorder's span tail); empty when capture is off or ``n`` <= 0."""
+        if n <= 0:
+            return []
+        with self._lock:
+            return self._events[-n:]
+
+    # --- exemplar capture ------------------------------------------------------
+
+    def _ex_trim_locked(self) -> None:
+        while self._ex_count > self._ex_limit:
+            root = next(iter(self._ex_spans))
+            bucket = self._ex_spans[root]
+            if len(self._ex_spans) == 1:
+                # one request owns the whole ring: age its oldest spans
+                # individually instead of dropping its live tree
+                n_drop = self._ex_count - self._ex_limit
+                del bucket[:n_drop]
+                self._ex_count -= n_drop
+                self._ex_dropped += n_drop
+                return
+            del self._ex_spans[root]
+            self._ex_count -= len(bucket)
+            self._ex_dropped += len(bucket)
+
+    def exemplar_enable(self, limit: int) -> None:
+        """Arm the exemplar ring: keep the newest ``limit`` ctx-carrying
+        spans. Independent of :meth:`enable`; ``limit <= 0`` disarms and
+        clears."""
+        with self._lock:
+            self._ex_limit = max(0, limit)
+            if self._ex_limit == 0:
+                self._ex_spans.clear()
+                self._ex_count = 0
+            else:
+                self._ex_trim_locked()
+
+    def exemplar_disable(self) -> None:
+        self.exemplar_enable(0)
+
+    def exemplar_collect(self, ctx_prefix: str | None = None) -> list[dict]:
+        """Spans in the exemplar ring whose ``args.ctx`` starts with
+        ``ctx_prefix`` (all when None), oldest request first, as complete
+        trace events. Non-draining. A full request ctx is one bucket lookup;
+        a bare run-id prefix scans the buckets."""
+        pid = os.getpid()
+
+        def mat(e: tuple) -> dict:
+            name, t0, t1, tid, _ctx, pairs = e
+            return {"name": name, "ph": "X", "ts": round(t0 * 1e6, 3),
+                    "dur": round((t1 - t0) * 1e6, 3), "pid": pid, "tid": tid,
+                    "args": dict(pairs)}
+
+        with self._lock:
+            if ctx_prefix is None:
+                return [mat(e) for bucket in self._ex_spans.values() for e in bucket]
+            if "/" in ctx_prefix:
+                bucket = self._ex_spans.get(_ex_root(ctx_prefix))
+                if not bucket:
+                    return []
+                return [mat(e) for e in bucket if e[4].startswith(ctx_prefix)]
+            out: list[dict] = []
+            for root, bucket in self._ex_spans.items():
+                if root.startswith(ctx_prefix):
+                    out.extend(mat(e) for e in bucket if e[4].startswith(ctx_prefix))
+            return out
+
+    @property
+    def exemplar_dropped(self) -> int:
+        with self._lock:
+            return self._ex_dropped
+
     def save(self, path_or_file: str | TextIO) -> None:
         """Write the captured events as Chrome trace-event JSON."""
         doc = {"traceEvents": self.events(), "displayTimeUnit": "ms"}
@@ -258,6 +421,11 @@ class Tracer:
             if cnt > b_cnt:
                 out[name] = (tot - b_tot, cnt - b_cnt)
         return out
+
+    def total_s(self, name: str,
+                snap: dict[str, tuple[float, int]] | None = None) -> float:
+        agg = self.since(snap) if snap is not None else self.snapshot()
+        return agg.get(name, (0.0, 0))[0]
 
 
 class ClockAlign:
@@ -323,12 +491,40 @@ def disable() -> None:
     _TRACER.disable()
 
 
+def enabled() -> bool:
+    return _TRACER.enabled
+
+
 def save(path_or_file: str | TextIO) -> None:
     _TRACER.save(path_or_file)
 
 
+def set_event_limit(max_events: int | None) -> None:
+    _TRACER.set_event_limit(max_events)
+
+
 def drain_events() -> tuple[list[dict], int]:
     return _TRACER.drain_events()
+
+
+def pending_events() -> int:
+    return _TRACER.pending()
+
+
+def ingest(events: list[dict]) -> None:
+    _TRACER.ingest(events)
+
+
+def tail(n: int) -> list[dict]:
+    return _TRACER.tail(n)
+
+
+def exemplar_enable(limit: int) -> None:
+    _TRACER.exemplar_enable(limit)
+
+
+def exemplar_collect(ctx_prefix: str | None = None) -> list[dict]:
+    return _TRACER.exemplar_collect(ctx_prefix)
 
 
 def snapshot() -> dict[str, tuple[float, int]]:
@@ -337,3 +533,7 @@ def snapshot() -> dict[str, tuple[float, int]]:
 
 def since(snap: dict[str, tuple[float, int]]) -> dict[str, tuple[float, int]]:
     return _TRACER.since(snap)
+
+
+def total_s(name: str, snap: dict[str, tuple[float, int]] | None = None) -> float:
+    return _TRACER.total_s(name, snap)

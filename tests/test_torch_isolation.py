@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, nothing of ``sieve``, no silent CPU.
 
   - a fresh interpreter runs ``python -m sieve_torch --n 1e5 --device cpu``
-    on the cuda backend and on the torch backend (the entry point, through
-    runpy) and imports every module of the package, and neither ``jax``
+    on the cuda backend and on the torch backend, and ``--emit-primes`` (the
+    entry point, through runpy), and imports every module of the package,
+    the ``analysis`` and ``service`` subpackages included, and neither ``jax``
     nor ``sieve`` is loaded afterwards; no source file of the package (nor
     chip_smoke.py) names them in an import; the same holds for a cluster
     worker (``--role worker`` on the cuda backend) and for a
@@ -67,6 +68,11 @@ with contextlib.redirect_stdout(buf):
             runpy.run_module("sieve_torch", run_name="__main__")
         except SystemExit as e:
             rcs.append(e.code)
+    sys.argv = ["sieve_torch", "--emit-primes", "999900:1000000"]
+    try:
+        runpy.run_module("sieve_torch", run_name="__main__")
+    except SystemExit as e:
+        rcs.append(e.code)
 import sieve_torch
 mods = [m.name for m in pkgutil.walk_packages(sieve_torch.__path__, "sieve_torch.")
         if m.name != "sieve_torch.__main__"]  # importing it runs the CLI
@@ -83,8 +89,10 @@ def test_run_loads_no_jax_and_no_sieve():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     got = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert got["rcs"] == [0, 0]
+    assert got["rcs"] == [0, 0, 0]
     lines = got["out"].splitlines()
+    assert lines[6:] == ["999907", "999917", "999931", "999953", "999959", "999961",
+                         "999979", "999983"]
     for i, backend in enumerate(("cuda", "torch")):
         assert lines[3 * i : 3 * i + 2] == [
             "pi(100000) = 9592", "cousin pairs (p, p+4 <= 100000) = 1216"]
@@ -95,6 +103,10 @@ def test_run_loads_no_jax_and_no_sieve():
             "sieve_torch.backends.mesh_backend", "sieve_torch.backends.cpu_native",
             "sieve_torch.cluster", "sieve_torch.rpc", "sieve_torch.trace",
             "sieve_torch.metrics", "sieve_torch.chaos", "sieve_torch.parallel.dist",
+            "sieve_torch.analysis.lockdebug", "sieve_torch.analysis.model",
+            "sieve_torch.service", "sieve_torch.service.index",
+            "sieve_torch.service.store", "sieve_torch.service.exemplar",
+            "sieve_torch.enumerate", "sieve_torch.debug", "sieve_torch.profile",
             } <= set(got["modules"])
     loaded = [m for m in got["after"] if _forbidden(m)]
     assert not loaded, f"the port loaded {loaded}"
