@@ -22,7 +22,13 @@ two gloo ranks sharing the card and their resume, and one NCCL rank.
 Phase ``service`` serves a ledger the card wrote through the port's data
 plane: the read-only ledger, the tiered store seeded from it, the
 segment index (prefix counts, nth, a batch) with chunks demoted into the
-store and read back from a second handle, and ``--emit-primes``.
+store and read back from a second handle, and ``--emit-primes``. Phase
+``serve`` runs the query server with its cold plane on the card: a
+cold-only in-process server on the cuda backend under a concurrent burst
+of every query op (its fused launches == its cold chunks less those
+answered on the host), the mesh cold plane on the word kernel, and
+``python3 -m sieve_torch serve`` as a process over a ledger the card
+wrote, queried hot and cold and shut down over the wire.
 Each ``--other DIR`` names a checkout of another commit
 (the parent, unpacked with ``git archive``) or a variant of these
 sources, whose kernels are built too and timed in turns with these in
@@ -34,9 +40,9 @@ line:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
-The words, cluster, multihost and service phases print their summaries
-as ``[words] {...}``, ``[cluster] {...}``, ``[multihost] {...}`` and
-``[service] {...}`` lines before those three. Exits non-zero when torch sees no CUDA device, and when run
+The words, cluster, multihost, service and serve phases print their
+summaries as ``[words] {...}``, ``[cluster] {...}``, ``[multihost] {...}``,
+``[service] {...}`` and ``[serve] {...}`` lines before those three. Exits non-zero when torch sees no CUDA device, and when run
 outside a checkout of the repository.
 """
 
@@ -1439,6 +1445,307 @@ def phase_service(device="cuda", sizes=None) -> dict:
     return out
 
 
+SERVE_SIZES = {"n": 10**10, "x": 10**9, "segments": 16, "window": 10**8}
+# twin pairs (p, p+2) with p+2 below x
+TWINS_BELOW = {10**5: 1_224, 10**8: 440_312}
+
+
+def _percentiles(replies: list[tuple[str, dict]]) -> dict:
+    """p50/p95 of the replies' ``elapsed_ms``, per op."""
+    by_op: dict[str, list[float]] = {}
+    for op, r in replies:
+        by_op.setdefault(op, []).append(float(r["elapsed_ms"]))
+    return {op: {"n": len(v), "p50_ms": float(np.percentile(v, 50)),
+                 "p95_ms": float(np.percentile(v, 95))}
+            for op, v in sorted(by_op.items())}
+
+
+def _serve_burst(addr: str, jobs: list[tuple[str, dict]]) -> list[dict]:
+    """Each job on its own ``ServiceClient`` thread, all at once; the raw
+    replies in job order (a failed call raises here)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sieve_torch.service import ServiceClient
+
+    def one(job):
+        op, kw = job
+        with ServiceClient(addr, timeout_s=120) as c:
+            if op == "batch":
+                return c.query_batch(kw["members"])
+            return c.query(op, **kw)
+
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        return list(pool.map(one, jobs))
+
+
+def _host_chunks(packing: str, chunks) -> int:
+    """Chunks the cuda worker answers on the host, by the reference's rule
+    for its device backends: fewer than MIN_DEVICE_BITS candidate bits."""
+    layout = get_layout(packing)
+    return sum(layout.nbits(lo, hi) < pairs.MIN_DEVICE_BITS for lo, hi in chunks)
+
+
+def _serve_loop_plane(device: str, sizes: dict, out: dict) -> None:
+    """(a) a cold-only server on the cuda backend at the reference's
+    default settings: every cold chunk is one fused-kernel launch."""
+    from sieve_torch.service import ServiceClient, ServiceSettings, SieveService
+
+    n, x = sizes["n"], sizes["x"]
+    on_card = device == "cuda"
+    cfg = SieveConfig(n=n, backend="cuda", device=device, quiet=True)
+    rng = np.random.default_rng(7)
+    members = []
+    for v in rng.integers(2, n, size=64).tolist():
+        kind = len(members) % 3
+        if kind == 0:
+            members.append({"op": "pi", "x": v})
+        elif kind == 1:
+            members.append({"op": "is_prime", "x": v})
+        else:
+            members.append({"op": "count", "lo": v // 2, "hi": v})
+    last_x = LAST_PRIME[x]
+    jobs = [("pi", {"x": x}),
+            ("count", {"lo": 2, "hi": x // 10, "kind": "twins"}),
+            ("pi", {"x": n}),
+            ("is_prime", {"x": LAST_PRIME[n]}),
+            ("nth_prime", {"k": PI[x]}),
+            ("primes", {"lo": x - 100, "hi": x}),
+            ("count", {"lo": x, "hi": n}),
+            ("batch", {"members": members})]
+    want = [PI[x], TWINS_BELOW[x // 10], PI[n], True, last_x, None,
+            PI[n] - PI[x], None]
+    svc = SieveService(cfg, ServiceSettings())
+    svc.start()
+    try:
+        with ServiceClient(svc.addr, timeout_s=120) as c:
+            mark_fused.launches = mark_split.launches = 0
+            t_w = time.perf_counter()
+            warm = c.pi(10**6)
+            out["warm_s"] = time.perf_counter() - t_w
+            if warm != 78_498:
+                raise AssertionError(f"serve loop: warm pi(1e6) = {warm}")
+            t_b = time.perf_counter()
+            replies = _serve_burst(svc.addr, jobs)
+            out["burst_s"] = time.perf_counter() - t_b
+            launches = mark_fused.launches
+            split = mark_split.launches
+            for (op, kw), r, w in zip(jobs, replies, want):
+                if op == "batch":
+                    continue
+                if not r.get("ok"):
+                    raise AssertionError(f"serve loop: {op} {kw} -> {r}")
+                if op == "primes":
+                    vals = [int(v) for v in r["value"]]
+                    if not vals or vals[-1] != last_x or vals != sorted(vals):
+                        raise AssertionError(f"serve loop: primes {kw} ended {vals[-3:]}")
+                elif r["value"] != w:
+                    raise AssertionError(f"serve loop: {op} {kw} = {r['value']}, "
+                                         f"expected {w}")
+            batch = replies[-1]
+            scalar = []
+            for m in members:
+                kw = {k: v for k, v in m.items() if k != "op"}
+                scalar.append(c.query(m["op"], **kw)["value"])
+            got = [b.get("value") for b in batch]
+            if not all(b.get("ok") for b in batch) or got != scalar:
+                raise AssertionError(f"serve loop: batch != its scalar answers: "
+                                     f"{[(g, s) for g, s in zip(got, scalar) if g != s][:4]}")
+            stats = c.stats()
+        worker = svc.cold._worker
+        host = worker.host_segments if worker is not None else 0
+    finally:
+        svc.stop()
+    chunks = stats["cold_batched_chunks"]
+    if stats["degraded_replies"] or stats["internal_errors"]:
+        raise AssertionError(f"serve loop: degraded {stats['degraded_replies']}, "
+                             f"internal {stats['internal_errors']}")
+    if stats["cold_store_hits"] or stats["mesh_launches"] or split:
+        raise AssertionError("serve loop: a chunk bypassed the loop worker")
+    want_launches = (chunks - host) if on_card else 0
+    if launches != want_launches:
+        raise AssertionError(f"serve loop: {launches} fused launches for {chunks} "
+                             f"chunks less {host} answered on the host")
+    requests = stats["requests"] + stats["batch_members"]
+    cap = -(-chunks // 128) + requests
+    if stats["cold_dispatches"] > cap:
+        raise AssertionError(f"serve loop: {stats['cold_dispatches']} dispatches > "
+                             f"ceil({chunks}/128) + {requests} requests")
+    out.update(dispatches=stats["cold_dispatches"], chunks=chunks,
+               host_chunks=host, launches=launches, coalesced=stats["coalesced"],
+               requests=requests,
+               ops=_percentiles([(op, r) for (op, _), r in zip(jobs, replies)
+                                 if op != "batch"]))
+    log("serve", f"loop plane (cuda, n={n}): burst {out['burst_s']:.3f} s after a "
+                 f"{out['warm_s']:.3f} s warm-up | {stats['cold_dispatches']} dispatches, "
+                 f"{chunks} chunks, {host} on the host, fused launches {launches} | "
+                 f"batch of {len(members)} == scalar")
+
+
+def _serve_mesh_plane(device: str, sizes: dict, out: dict) -> None:
+    """(b) the mesh cold plane: the word kernel, one dispatch per drain."""
+    from sieve_torch.service import ServiceClient, ServiceSettings, SieveService
+
+    x = sizes["x"]
+    on_card = device == "cuda"
+    cfg = SieveConfig(n=sizes["n"], backend="cuda", device=device, quiet=True)
+    svc = SieveService(cfg, ServiceSettings(cold_backend="mesh"))
+    svc.start()
+    try:
+        mark_fused.launches = 0
+        word_mark.mark_words_batch.cuda_calls = 0
+        t_b = time.perf_counter()
+        jobs = [("pi", {"x": x}), ("count", {"lo": 2, "hi": x})]
+        replies = _serve_burst(svc.addr, jobs)
+        out["burst_s"] = time.perf_counter() - t_b
+        calls = word_mark.mark_words_batch.cuda_calls
+        fused = mark_fused.launches
+        for (op, kw), r in zip(jobs, replies):
+            if r.get("value") != PI[x]:
+                raise AssertionError(f"serve mesh: {op} {kw} -> {r}")
+        with ServiceClient(svc.addr) as c:
+            stats = c.stats()
+        desc = svc.cold.describe()
+    finally:
+        svc.stop()
+    if desc["cold_backend"] != "mesh" or desc["mesh_devices"] != 1:
+        raise AssertionError(f"serve mesh: describe() = {desc}")
+    if stats["mesh_launches"] < 1 or stats["mesh_fallbacks"] != 0:
+        raise AssertionError(f"serve mesh: launches {stats['mesh_launches']}, "
+                             f"fallbacks {stats['mesh_fallbacks']}")
+    if stats["degraded_replies"] or stats["internal_errors"] or fused:
+        raise AssertionError(f"serve mesh: degraded {stats['degraded_replies']}, "
+                             f"internal {stats['internal_errors']}, fused {fused}")
+    if on_card and calls < 1:
+        raise AssertionError("serve mesh: no mark_words_batch call on the card")
+    out.update(dispatches=stats["cold_dispatches"], chunks=stats["cold_batched_chunks"],
+               mesh_launches=stats["mesh_launches"], words_calls=calls,
+               ops=_percentiles(list(zip(["pi", "count"], replies))))
+    log("serve", f"mesh plane (n={sizes['n']}): pi({x}) and count(2, {x}) = {PI[x]} in "
+                 f"{out['burst_s']:.3f} s | {stats['cold_dispatches']} dispatches, "
+                 f"{stats['cold_batched_chunks']} chunks, {stats['mesh_launches']} mesh "
+                 f"launches, {calls} word-kernel calls, 0 fallbacks")
+
+
+def _serve_cli(device: str, sizes: dict, out: dict) -> None:
+    """(c) ``python3 -m sieve_torch serve`` over a ledger the card wrote:
+    hot queries from the index, a cold window past it on the fused kernel
+    (held against cpu-native), then the shutdown op and a clean exit."""
+    from sieve_torch.backends.cpu_native import CpuNativeWorker
+    from sieve_torch.service import ServiceClient, ServiceSettings
+
+    n, nseg, window = sizes["n"], sizes["segments"], sizes["window"]
+    defaults = ServiceSettings()  # what `serve` runs with
+    on_card = device == "cuda"
+    with tempfile.TemporaryDirectory(prefix="sieve_serve_") as ck:
+        # no --twins: serve's config has no pair kind, and the ledger's
+        # config hash includes it (the reference refuses such a ledger too)
+        argv = ["--n", str(n), "--segments", str(nseg), "--checkpoint-dir", ck,
+                "--backend", "cuda", "--device", device]
+        mark_fused.launches = 0
+        got, _wall = run_cli(argv)
+        out["ledger_launches"] = mark_fused.launches
+        _check_launches("serve: the ledger's counting run",
+                        _device_segments(n, "odds", nseg) if on_card else 0, 0)
+        if got["pi"] != PI[n]:
+            raise AssertionError(f"serve ledger: pi {got['pi']}")
+        cmd = [sys.executable, "-m", "sieve_torch", "serve", "--n", str(n), "--segments",
+               str(nseg), "--checkpoint-dir", ck, "--addr", "127.0.0.1:0", "--quiet"]
+        if not on_card:
+            cmd += ["--device", device]
+        so, se = Path(ck) / "serve.out", Path(ck) / "serve.err"
+        t0 = time.perf_counter()
+        with open(so, "w") as fo, open(se, "w") as fe:
+            proc = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent,
+                                    stdout=fo, stderr=fe, text=True)
+        try:
+            head = None
+            while head is None:
+                if proc.poll() is not None:
+                    raise AssertionError(f"serve exited {proc.returncode}: "
+                                         f"{se.read_text()[-2000:]}")
+                if time.perf_counter() - t0 > 180:
+                    raise AssertionError("serve printed no address line in 180 s")
+                lines = so.read_text().splitlines()
+                if lines:
+                    head = json.loads(lines[0])
+                else:
+                    time.sleep(0.05)
+            out["start_s"] = time.perf_counter() - t0
+            lo, hi = n, n + window
+            with ServiceClient(head["addr"], timeout_s=120) as c:
+                hot = [c.query("pi", x=n), c.query("nth_prime", k=PI[n])]
+                if [r.get("value") for r in hot] != [PI[n], LAST_PRIME[n]]:
+                    raise AssertionError(f"serve cli: hot replies {hot}")
+                if any(r["source"] != "index" for r in hot):
+                    raise AssertionError(f"serve cli: hot sources {hot}")
+                cold = c.query("count", lo=lo, hi=hi)
+                stats = c.stats()
+                launched = c.metrics().get("kernel.mark_fused.launches",
+                                           {}).get("value", 0)
+                t_s = time.perf_counter()
+                c.shutdown()
+            rc = proc.wait(timeout=60)
+            out["exit_s"] = time.perf_counter() - t_s
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if rc != 0:
+            raise AssertionError(f"serve exited {rc}: {se.read_text()[-2000:]}")
+        if out["exit_s"] > defaults.drain_s:
+            raise AssertionError(f"serve took {out['exit_s']:.2f} s to exit after "
+                                 f"shutdown, past drain_s {defaults.drain_s}")
+        drained = json.loads(so.read_text().splitlines()[-1])
+        if drained.get("event") != "drained" or not drained.get("clean"):
+            raise AssertionError(f"serve: last line {drained}")
+    seeds = seed_primes(math.isqrt(hi - 1))
+    native = CpuNativeWorker(SieveConfig(n=hi, backend="cpu-native")).process_segment(
+        lo, hi, seeds).count
+    if not cold.get("ok") or cold["value"] != native:
+        raise AssertionError(f"serve cli: count({lo}, {hi}) -> {cold}, cpu-native {native}")
+    covered = int(head["covered_hi"])
+    chunks = []
+    a = covered
+    while a < hi:
+        b = min((a // defaults.cold_chunk + 1) * defaults.cold_chunk, hi)
+        chunks.append((a, b))
+        a = b
+    host = _host_chunks("odds", chunks)
+    if stats["cold_batched_chunks"] != len(chunks):
+        raise AssertionError(f"serve cli: {stats['cold_batched_chunks']} chunks, "
+                             f"the grid gives {len(chunks)}")
+    want = (len(chunks) - host) if on_card else 0
+    if launched != want or stats["degraded_replies"] or stats["internal_errors"]:
+        raise AssertionError(f"serve cli: {launched} fused launches for "
+                             f"{len(chunks)} chunks less {host} on the host")
+    out.update(dispatches=stats["cold_dispatches"], chunks=len(chunks), host_chunks=host,
+               launches=launched, cold_count=cold["value"],
+               ops=_percentiles([("pi", hot[0]), ("nth_prime", hot[1]),
+                                 ("count", cold)]))
+    log("serve", f"CLI: up in {out['start_s']:.3f} s | pi({n}) and nth_prime({PI[n]}) "
+                 f"from the index | count({lo}, {hi}) = {cold['value']} (cpu-native "
+                 f"{native}) on {len(chunks)} chunks, {launched} fused launches in the "
+                 f"server | shutdown -> exit 0 in {out['exit_s']:.3f} s")
+
+
+def phase_serve(device="cuda", sizes=None) -> dict:
+    """One ``serve`` process with its cold plane on the card: (a) an
+    in-process cold-only server on the cuda backend under a concurrent
+    burst of every query op, its fused launches == its chunks less the
+    ones answered on the host; (b) the mesh cold plane on the word kernel,
+    with no fallback; (c) the CLI's ``serve`` as a process over a ledger
+    the card wrote, a cold window past it, and its shutdown."""
+    sizes = sizes or SERVE_SIZES
+    t0 = time.perf_counter()
+    out = {"loop": {}, "mesh": {}, "cli": {}}
+    _serve_loop_plane(device, sizes, out["loop"])
+    _serve_mesh_plane(device, sizes, out["mesh"])
+    _serve_cli(device, sizes, out["cli"])
+    out["launches"] = (out["loop"]["launches"] + out["cli"]["ledger_launches"]
+                       + out["cli"]["launches"])
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, action="append", default=[],
@@ -1489,6 +1796,10 @@ def main(argv=None) -> int:
     service = timed("service", phase_service)
     log("launches", f"service: mark_fused {service['launches']} in the counting run "
                     "that wrote the served ledger")
+    serve = timed("serve", phase_serve)
+    log("launches", f"serve: mark_fused {serve['launches']} (the loop plane's cold "
+                    "chunks, the CLI ledger's counting run and the CLI server's "
+                    "cold window)")
     log("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s: "
                 + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
     wt = words["times"]
@@ -1506,13 +1817,15 @@ def main(argv=None) -> int:
         {"launches": cluster["launches"], **cluster["runs"]}))
     print("[multihost] " + json.dumps(multihost))
     print("[service] " + json.dumps(service))
+    print("[serve] " + json.dumps(serve))
     kernels = [{
         "name": "fused_mark",
         "route": "cuda",
         "source": "sieve_torch/kernels/csrc/fused_mark.cu",
         "replaces": "sieve/kernels/pallas_mark.py:694",
         "launches": (launches + rounds["launches"]["fused"] + cluster["launches"]
-                     + multihost["launches"] + service["launches"]),
+                     + multihost["launches"] + service["launches"]
+                     + serve["launches"]),
         "max_abs_err": worst,
         "ms": times["counting"]["ms"],
         "plain_ms": times["counting"]["plain_ms"],

@@ -55,6 +55,9 @@ class CudaWorker(SieveWorker):
         self._chain_seeds: np.ndarray | None = None
         # device mark+reduce time, reported through SieveResult.host_phases
         self.reduce_seconds: dict[str, float] = {}
+        # segments under MIN_DEVICE_BITS candidate bits, answered on the
+        # host as the reference's device backends do: no kernel launch
+        self.host_segments = 0
 
     def _prepare(self, lo: int, hi: int, seeds: np.ndarray):
         """Incremental prepare: a run's equal-sized segments share one
@@ -84,6 +87,7 @@ class CudaWorker(SieveWorker):
         layout = get_layout(self.config.packing)
         nbits = layout.nbits(lo, hi)
         if nbits < MIN_DEVICE_BITS:
+            self.host_segments += 1
             return self._cpu_fallback.process_segment(lo, hi, seed_primes, seg_id)
         seg = self._prepare(lo, hi, seed_primes)
         self.reduction_mode = "fused" if fused_enabled() else "split"

@@ -17,7 +17,15 @@ The cluster plane's kinds:
 The service's kinds (``svc_*``, ``backend_down``, ``replica_down``,
 ``store_torn_write``) parse here too, with the reference's defaults and
 checks, so one ``--chaos`` string means the same in both packages; the
-cluster ignores them.
+cluster ignores them. Each plane draws only its own kinds
+(:meth:`ChaosSchedule.take_kinds`): the server's dispatcher the
+``SERVICE_REQUEST_KINDS`` on its request sequence number, its ledger
+follower ``svc_refresh_corrupt`` on refresh attempts, its batcher
+``svc_batch_partial`` on batch dispatches, its cold backend
+``svc_mesh_fail`` on mesh launches, the store ``store_torn_write`` on
+appends, and the ``profile`` op ``svc_prof_gap`` on profile pulls. The
+router's (``ROUTER_REQUEST_KINDS``) and the observer's
+(``OBSERVER_KINDS``) kinds belong to planes of their own.
 
 ``worker`` is an integer id, or ``any``/``*`` for whichever worker draws
 the segment. Directives travel to the worker inside the ``assign``
@@ -54,6 +62,43 @@ KINDS = (
     "svc_scrape_gap",
     "svc_prof_gap",
 )
+# kinds handled by the query service (sieve_torch/service/)
+SERVICE_KINDS = (
+    "svc_stall",
+    "svc_shed",
+    "backend_down",
+    "svc_refresh_corrupt",
+    "replica_down",
+    "svc_drain",
+    "svc_batch_partial",
+    "svc_flood",
+    "svc_trace_drop",
+    "svc_crash",
+    "svc_slow_frame",
+    "store_torn_write",
+    "svc_mesh_fail",
+)
+# drawn by the server's dispatcher on the request sequence number
+SERVICE_REQUEST_KINDS = (
+    "svc_stall",
+    "svc_shed",
+    "backend_down",
+    "replica_down",
+    "svc_drain",
+    "svc_flood",
+    "svc_trace_drop",
+    "svc_crash",
+    "svc_slow_frame",
+)
+# drawn by the router on ITS request sequence; the worker field names a
+# shard index there, so shard servers never consume these
+ROUTER_REQUEST_KINDS = ("svc_shard_down",)
+# drawn by the fleet observer on its scrape counter; the worker field is
+# the target's index in its target list
+OBSERVER_KINDS = ("svc_scrape_gap",)
+# drawn by the ``profile`` wire op of both serving tiers, each on its own
+# profile-pull counter
+PROFILE_KINDS = ("svc_prof_gap",)
 # kinds whose param is a lane name ("hot"/"cold"), not seconds
 LANE_PARAM_KINDS = ("svc_flood",)
 _LANES = ("hot", "cold")
@@ -80,6 +125,12 @@ DEFAULT_PARAM: dict[str, float | str | None] = {
     "svc_scrape_gap": None,
     "svc_prof_gap": None,
 }
+
+
+class ChaosCrash(RuntimeError):
+    """Raised by the ``svc_crash`` directive. Re-raised past the service
+    handler's catch-all nets, so the worker thread really dies and the
+    flight recorder's ``threading.excepthook`` crash trigger fires."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,3 +239,8 @@ class ChaosSchedule:
                 taken = set(map(id, hit))
                 self._pending = [d for d in self._pending if id(d) not in taken]
         return [d.to_wire() for d in hit]
+
+    def extend(self, directives: list[ChaosDirective]) -> None:
+        """Inject more directives at runtime (the service's chaos op)."""
+        with self._lock:
+            self._pending.extend(directives)

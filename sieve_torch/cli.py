@@ -10,6 +10,8 @@ Examples:
     python -m sieve_torch --n 1e10 --twins --workers 2 --rounds 8 --multihost \
         --dist-coordinator 127.0.0.1:29500 --dist-processes 2 --dist-process-id 0
     python -m sieve_torch --emit-primes 999999900:1000000000 [--json]
+    python -m sieve_torch serve --n 1e10 --segments 16 --checkpoint-dir ck \
+        --addr 127.0.0.1:0 [--cold-backend mesh] [--procs 2]
 
 ``--workers`` > 1 or ``--rounds`` > 1 on the cuda or torch backend runs
 the rounds path (sieve_torch/parallel/mesh.py), one shard per card;
@@ -25,6 +27,14 @@ then not needed); like the reference it marks on the host with numpy.
 SIEVE_PALLAS_FUSED=0 selects the split kernel and its postlude. The flags
 and output lines are the reference CLI's; the reference's ``--jax-*``
 spellings of the ``--dist-*`` flags are accepted too.
+
+``serve`` runs the query server (sieve_torch/service/server.py) over a
+checkpoint dir's ledger, or cold-only without one; it prints one JSON
+``{"event": "serving", "addr": ...}`` line once it listens and drains on
+SIGTERM or the ``shutdown`` op. Its flags are the reference's, except
+that ``--backend`` defaults to ``cuda`` and ``--device`` places it: a
+device backend on a card that is not there exits 2 at start, before the
+server listens.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ import argparse
 import json
 import sys
 
+from sieve_torch import env
 from sieve_torch.config import BACKENDS, COUNT_KINDS, PACKINGS, SieveConfig
 
 
@@ -269,7 +280,361 @@ def _emit_primes(args: argparse.Namespace) -> int:
     return 0
 
 
+def build_serve_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="sieve_torch serve",
+        description="Persistent query server: pi / count / nth_prime / "
+                    "primes over the RPC plane (sieve_torch/service/)",
+    )
+    p.add_argument("--addr", default="127.0.0.1:7723",
+                   help="listen address host:port (port 0 picks a free one; "
+                        "the chosen address is printed as a JSON line)")
+    p.add_argument("--n", type=_parse_n, required=True,
+                   help="the sieved range [2, N] the checkpoint dir covers "
+                        "(must match the sieving run for its config hash)")
+    p.add_argument("--packing", choices=PACKINGS, default="odds")
+    p.add_argument("--segments", type=int, default=None, dest="n_segments")
+    p.add_argument("--segment-size", type=int, default=None,
+                   dest="segment_values")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="sieved checkpoint dir to index (omit for a "
+                        "cold-only server)")
+    p.add_argument("--backend", choices=[b for b in BACKENDS
+                                         if b != "cpu-cluster"],
+                   default="cuda",
+                   help="cold-tier compute backend for uncovered ranges")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the cuda and torch backends: "
+                        "cuda (the card) or cpu")
+    p.add_argument("--cold-backend", choices=("loop", "mesh"), default=None,
+                   dest="cold_backend",
+                   help="cold-plane dispatch: 'mesh' runs each drain slice "
+                        "as ONE word-kernel dispatch over every card (falls "
+                        "back typed to the loop worker when the mesh can't "
+                        "init or a launch fails); 'loop' is the "
+                        "single-worker path (default "
+                        "SIEVE_SVC_COLD_BACKEND/loop)")
+    p.add_argument("--queue-limit", type=int, default=None,
+                   help="admission queue bound (default SIEVE_SVC_QUEUE/64; "
+                        "beyond it requests get a typed overloaded reply)")
+    p.add_argument("--service-workers", type=int, default=None,
+                   help="handler threads (default SIEVE_SVC_WORKERS/4)")
+    p.add_argument("--deadline-s", type=float, default=None,
+                   help="default per-request deadline "
+                        "(default SIEVE_SVC_DEADLINE_S/30)")
+    p.add_argument("--refresh-s", type=float, default=None,
+                   help="ledger live-follow poll period (default "
+                        "SIEVE_SVC_REFRESH_S/2.0; 0 disables the follower)")
+    p.add_argument("--drain-s", type=float, default=None,
+                   help="graceful-drain budget after SIGTERM/shutdown "
+                        "(default SIEVE_SVC_DRAIN_S/5.0)")
+    p.add_argument("--persist-cold", action="store_true",
+                   help="write cold chunk results back into the checkpoint "
+                        "dir's ledger (this server becomes its designated "
+                        "writer; covered_hi grows under read traffic). "
+                        "Default OFF / SIEVE_SVC_PERSIST_COLD")
+    p.add_argument("--range-lo", type=_parse_n, default=None, dest="range_lo",
+                   help="serve as a range SHARD covering [RANGE_LO, N]: "
+                        "count/primes below RANGE_LO are rejected typed, "
+                        "counts anchor at RANGE_LO instead of 2, and pi "
+                        "(a global-prefix op) is refused "
+                        "(default SIEVE_SVC_RANGE_LO/2)")
+    p.add_argument("--allow-chaos", action="store_true",
+                   help="accept wire-injected chaos messages (default OFF: "
+                        "a refused injection gets a typed bad_request and "
+                        "a service_chaos_refused event)")
+    p.add_argument("--chaos", default=None,
+                   help="service fault schedule, e.g. 'svc_stall:any@s3:2.0,"
+                        "svc_shed:any@s5,backend_down:any@s7:1.0' (segment "
+                        "number = request sequence number)")
+    p.add_argument("--trace", default=None, dest="trace_file", metavar="FILE",
+                   help="write rpc.query / queue-wait / materialize / cold "
+                        "spans as Chrome trace-event JSON on shutdown")
+    p.add_argument("--debug-dir", default=None, dest="debug_dir",
+                   help="flight-recorder bundle directory: edge triggers "
+                        "(SLO burn, breaker open, crash) freeze a "
+                        "timestamped postmortem bundle here (default "
+                        "SIEVE_SVC_DEBUG_DIR; without a dir the recorder "
+                        "still runs and serves the debug wire op inline)")
+    p.add_argument("--prof-hz", type=float, default=None, dest="prof_hz",
+                   help="continuous-profiler sampling rate (default "
+                        "SIEVE_PROF_HZ/19; 0 disables the sampler — the "
+                        "profile wire op then answers null)")
+    p.add_argument("--metrics-file", default=None, dest="metrics_file")
+    p.add_argument("--quiet", action="store_true",
+                   help="suppress per-request stderr event lines")
+    p.add_argument("--procs", type=int, default=None,
+                   help="serving processes SO_REUSEPORT-bound to ONE port "
+                        "(each runs its own event loop and worker pool over "
+                        "the shared mmap'd segment store; process 0 is the "
+                        "designated writer for persist-cold and store "
+                        "compaction). Default SIEVE_SVC_PROCS/1")
+    # set by the --procs supervisor when it re-execs itself as child i
+    p.add_argument("--proc-index", type=int, default=None,
+                   help=argparse.SUPPRESS)
+    return p
+
+
+def _probe_device(config: SieveConfig) -> None:
+    """A device backend on the card needs the card now: without one the
+    server would listen, answer hot queries, and degrade every cold one."""
+    if config.backend in ("cuda", "torch") and config.device != "cpu":
+        from sieve_torch.backends.cuda import resolve_device
+
+        resolve_device(config.device)
+
+
+def _serve(argv: list[str]) -> int:
+    args = build_serve_parser().parse_args(argv)
+    procs = args.procs if args.procs is not None \
+        else env.env_int("SIEVE_SVC_PROCS", 1)
+    config = SieveConfig(
+        n=args.n,
+        backend=args.backend,
+        device=args.device,
+        packing=args.packing,
+        n_segments=args.n_segments,
+        segment_values=args.segment_values,
+        checkpoint_dir=args.checkpoint_dir,
+        trace_file=args.trace_file,
+        metrics_file=args.metrics_file,
+        quiet=args.quiet,
+        chaos=args.chaos,
+    )
+    _probe_device(config)
+    if procs > 1 and args.proc_index is None:
+        # supervisor: spawn N SO_REUSEPORT children on one port and
+        # babysit them; this process never serves traffic itself
+        return _serve_supervisor(argv, args, procs)
+
+    from sieve_torch import metrics, trace
+    from sieve_torch.service import ServiceSettings, SieveService
+
+    overrides = {}
+    if args.queue_limit is not None:
+        overrides["queue_limit"] = args.queue_limit
+    if args.service_workers is not None:
+        overrides["workers"] = args.service_workers
+    if args.deadline_s is not None:
+        overrides["default_deadline_s"] = args.deadline_s
+    if args.refresh_s is not None:
+        overrides["refresh_s"] = args.refresh_s
+    if args.drain_s is not None:
+        overrides["drain_s"] = args.drain_s
+    if args.allow_chaos:
+        overrides["wire_chaos"] = True
+    if args.range_lo is not None:
+        overrides["range_lo"] = args.range_lo
+    if args.persist_cold:
+        if not args.checkpoint_dir:
+            raise ValueError("--persist-cold needs --checkpoint-dir (the "
+                             "ledger is the write-back target)")
+        overrides["persist_cold"] = True
+    if args.debug_dir is not None:
+        overrides["debug_dir"] = args.debug_dir
+    if args.prof_hz is not None:
+        overrides["prof_hz"] = args.prof_hz
+    if args.cold_backend is not None:
+        overrides["cold_backend"] = args.cold_backend
+    if procs > 1:
+        # child of the --procs supervisor: everyone binds the SAME port
+        # via SO_REUSEPORT; only process 0 writes, the rest follow
+        overrides["procs"] = procs
+        overrides["proc_index"] = args.proc_index or 0
+        overrides["reuse_port"] = True
+    settings = ServiceSettings.from_env(**overrides)
+
+    file_sink = None
+    if config.metrics_file:
+        file_sink = metrics.FileSink(config.metrics_file)
+        metrics.add_sink(file_sink)
+    if config.trace_file:
+        trace.enable()
+    service = SieveService(config, settings, addr=args.addr)
+    try:
+        service.start()
+        # one parseable line, so a wrapper finds the bound port when
+        # --addr uses port 0
+        print(json.dumps({
+            "event": "serving",
+            "addr": service.addr,
+            "covered_hi": service.index.covered_hi,
+            "total_primes": service.index.total_primes,
+            "segments": len(service.index.segments),
+            "proc": settings.proc_index,
+            "procs": settings.procs,
+        }), flush=True)
+        import signal
+
+        # SIGTERM = graceful drain: answer queued work, shed new queries
+        # typed, exit 0 within --drain-s. SIGINT stays the fast path.
+        signal.signal(signal.SIGTERM, lambda *_: service.drain())
+        service.drain_event.wait()  # serve until SIGTERM/shutdown
+        drained = service.wait_drained(settings.drain_s)
+        # the stats subset per-process observers need when N procs share
+        # one port (the kernel picks which process answers a connection)
+        final = service.stats()
+        print(json.dumps({
+            "event": "drained",
+            "clean": drained,
+            "proc": settings.proc_index,
+            "stats": {k: final[k]
+                      for k in ("requests", "draining_replies",
+                                "materialized", "cold_computes",
+                                "cold_dispatches", "lru_hits",
+                                "store_hits")},
+            "store": final["store"] and {
+                k: final["store"][k]
+                for k in ("gen", "writer", "hits", "demotions", "torn")},
+        }), flush=True)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        service.stop()
+        if config.trace_file:
+            trace.disable()
+            trace.save(config.trace_file)
+        if file_sink is not None:
+            metrics.remove_sink(file_sink)
+            file_sink.close()
+    return 0
+
+
+def _serve_supervisor(argv: list[str], args, procs: int) -> int:
+    """``serve --procs N``: N serving processes, ONE port.
+
+    Python threads share one GIL, so the supervisor spawns N full server
+    processes that bind the same TCP port with SO_REUSEPORT; the kernel
+    load-balances connections across them, and the mmap'd segment store
+    shares their hot tiers through the page cache. On port 0 the
+    supervisor first reserves a concrete port (bound, never listening)
+    and pins every child to it; children are re-execs of this command
+    line with --proc-index i. Their serving lines fold into one
+    supervisor line; everything else is forwarded verbatim. SIGTERM and
+    SIGINT fan out as SIGTERM (graceful drain); the exit code is 0 only
+    if every child drained cleanly.
+    """
+    import signal
+    import socket
+    import subprocess
+    import threading
+
+    from sieve_torch.rpc import parse_addr
+
+    if not hasattr(socket, "SO_REUSEPORT"):
+        print(json.dumps({"event": "error",
+                          "detail": "--procs needs SO_REUSEPORT, which "
+                                    "this platform lacks"}), flush=True)
+        return 2
+    host, port = parse_addr(args.addr)
+    reserve = None
+    if port == 0:
+        reserve = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        reserve.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+        reserve.bind((host, 0))
+        port = reserve.getsockname()[1]
+    addr = f"{host}:{port}"
+
+    # child argv = this argv with addr pinned and proc identity added
+    base: list[str] = []
+    skip = False
+    for a in argv:
+        if skip:
+            skip = False
+            continue
+        if a in ("--addr", "--procs", "--proc-index"):
+            skip = True
+            continue
+        if a.startswith(("--addr=", "--procs=", "--proc-index=")):
+            continue
+        base.append(a)
+
+    children: list[subprocess.Popen] = []
+    serving: list[threading.Event] = []
+    first_line: list[dict | None] = [None] * procs
+
+    def _forward(i: int, proc: subprocess.Popen) -> None:
+        assert proc.stdout is not None
+        for line in proc.stdout:
+            line = line.rstrip("\n")
+            if first_line[i] is None:
+                try:
+                    doc = json.loads(line)
+                except ValueError:
+                    doc = None
+                if doc is not None and doc.get("event") == "serving":
+                    first_line[i] = doc
+                    serving[i].set()
+                    continue
+            print(line, flush=True)
+
+    try:
+        for i in range(procs):
+            cmd = [sys.executable, "-m", "sieve_torch", "serve", *base,
+                   "--addr", addr, "--procs", str(procs),
+                   "--proc-index", str(i)]
+            p = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True)
+            children.append(p)
+            serving.append(threading.Event())
+            threading.Thread(target=_forward, args=(i, children[i]),
+                             daemon=True, name=f"serve-fwd-{i}").start()
+        for i, ev in enumerate(serving):
+            while not ev.wait(0.2):
+                if children[i].poll() is not None:
+                    raise RuntimeError(f"proc {i} exited "
+                                       f"rc={children[i].returncode} "
+                                       "before serving")
+        if reserve is not None:
+            reserve.close()  # every child holds the port now
+            reserve = None
+        doc0 = first_line[0] or {}
+        print(json.dumps({
+            "event": "serving",
+            "addr": addr,
+            "covered_hi": doc0.get("covered_hi"),
+            "total_primes": doc0.get("total_primes"),
+            "segments": doc0.get("segments"),
+            "procs": procs,
+            "supervisor": True,
+        }), flush=True)
+
+        stop = threading.Event()
+
+        def _fan_out(*_sig) -> None:
+            stop.set()
+            for p in children:
+                if p.poll() is None:
+                    p.send_signal(signal.SIGTERM)
+
+        signal.signal(signal.SIGTERM, _fan_out)
+        signal.signal(signal.SIGINT, _fan_out)
+        while not stop.is_set():
+            if any(p.poll() is not None for p in children):
+                _fan_out()  # one child died: drain the rest, report
+                break
+            stop.wait(0.2)
+        rcs = [p.wait() for p in children]
+        print(json.dumps({"event": "drained", "supervisor": True,
+                          "clean": all(rc == 0 for rc in rcs),
+                          "rcs": rcs}), flush=True)
+        return 0 if all(rc == 0 for rc in rcs) else 1
+    finally:
+        if reserve is not None:
+            reserve.close()
+        for p in children:
+            if p.poll() is None:
+                p.kill()
+
+
 def main(argv: list[str] | None = None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv and argv[0] == "serve":
+        try:
+            return _serve(argv[1:])
+        except (ValueError, RuntimeError, ImportError) as e:
+            print(f"sieve_torch: error: {e}", file=sys.stderr)
+            return 2
     args = build_parser().parse_args(argv)
     try:
         if args.emit_primes is not None:

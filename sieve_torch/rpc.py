@@ -32,6 +32,13 @@ import numpy as np
 # cut off instead of being buffered for a body that never comes.
 MAX_FRAME = 256 << 20
 
+#: wire versions this build speaks: v1 JSON bodies, v2 adds columnar
+#: frames. ``hello`` intersects the peers' sets and takes the max; without
+#: a hello everything is v1.
+WIRE_V1 = 1
+WIRE_V2 = 2
+SUPPORTED_WIRE = (WIRE_V1, WIRE_V2)
+
 #: first body byte of a v2 frame; a JSON object opens with ``{`` (0x7b)
 V2_MAGIC = 0x02
 

@@ -15,18 +15,61 @@ into a queryable store, all of it host numpy as in the reference:
   completion-time retention of request span trees, and
   :func:`load_exemplars`.
 
-The server, the client and the fabric come next and are not here yet.
+* :mod:`sieve_torch.service.server`: :class:`SieveService`, the query
+  server (bounded hot and cold lanes, deadlines, single-flight cold
+  chunks batched by :class:`ColdBatcher` into one backend dispatch, a
+  circuit breaker, :class:`LedgerFollower`, drain), whose cold plane runs
+  on the card: the configured backend's worker (``cuda``: one fused
+  kernel launch per chunk) or, with ``cold_backend="mesh"``, the word
+  kernel on every card;
+* :mod:`sieve_torch.service.client`: :class:`ServiceClient` (pipelining,
+  ``hello`` negotiation of the v2 columnar wire), :class:`ClientPool` and
+  the failover client :class:`ReplicaSet`.
+
+The range-sharded fabric (router, shards, observer) is not here yet.
 """
 
+from sieve_torch.service.client import (
+    CallTimeout,
+    ClientPool,
+    ReplicaSet,
+    ServiceClient,
+    ServiceError,
+)
 from sieve_torch.service.exemplar import ExemplarSampler, load_exemplars
 from sieve_torch.service.index import BitsetLRU, QueryCtx, SieveIndex
+from sieve_torch.service.server import (
+    BadRequest,
+    ColdBatcher,
+    DeadlineExceeded,
+    Degraded,
+    Draining,
+    LedgerFollower,
+    Overloaded,
+    ServiceSettings,
+    SieveService,
+)
 from sieve_torch.service.store import StoreSettings, TieredSegmentStore
 
 __all__ = [
+    "BadRequest",
     "BitsetLRU",
+    "CallTimeout",
+    "ClientPool",
+    "ColdBatcher",
+    "DeadlineExceeded",
+    "Degraded",
+    "Draining",
     "ExemplarSampler",
+    "LedgerFollower",
+    "Overloaded",
     "QueryCtx",
+    "ReplicaSet",
+    "ServiceClient",
+    "ServiceError",
+    "ServiceSettings",
     "SieveIndex",
+    "SieveService",
     "StoreSettings",
     "TieredSegmentStore",
     "load_exemplars",

@@ -112,3 +112,34 @@ def test_config_rejects_bad_chaos_eagerly(kw, match):
         SieveConfig(n=10**5, backend="cpu-cluster", **kw)
     with pytest.raises(ValueError, match=match):
         RefConfig(n=10**5, backend="cpu-cluster", **kw)
+
+
+def test_service_routing_tuples_match_reference():
+    """Which plane draws which kind: the five tuples are the reference's."""
+    for name in ("SERVICE_KINDS", "SERVICE_REQUEST_KINDS",
+                 "ROUTER_REQUEST_KINDS", "OBSERVER_KINDS", "PROFILE_KINDS"):
+        assert getattr(chaos, name) == getattr(ref, name), name
+    planes = (chaos.SERVICE_KINDS + chaos.ROUTER_REQUEST_KINDS
+              + chaos.OBSERVER_KINDS + chaos.PROFILE_KINDS)
+    assert set(chaos.SERVICE_REQUEST_KINDS) <= set(chaos.SERVICE_KINDS)
+    assert set(planes) | {"kill", "stall", "drop_hb", "disconnect"} == set(chaos.KINDS)
+
+
+def test_chaos_crash_and_extend():
+    assert issubclass(chaos.ChaosCrash, RuntimeError)
+    assert chaos.ChaosCrash.__mro__[1:] == ref.ChaosCrash.__mro__[1:]
+    got = chaos.ChaosSchedule(chaos.parse_chaos("svc_shed:any@s1"))
+    want = ref.ChaosSchedule(ref.parse_chaos("svc_shed:any@s1"))
+    more = "svc_stall:any@s2:0.5,svc_prof_gap:any@s2"
+    got.extend(chaos.parse_chaos(more))
+    want.extend(ref.parse_chaos(more))
+    assert len(got) == len(want) == 3
+    # each plane draws only its own kinds, one-shot
+    for sched in (got, want):
+        assert sched.take_kinds(0, 2, chaos.PROFILE_KINDS) == [
+            {"kind": "svc_prof_gap", "param": None, "worker": chaos.ANY_WORKER}]
+    assert got.take_kinds(0, 2, chaos.SERVICE_REQUEST_KINDS) == \
+        want.take_kinds(0, 2, ref.SERVICE_REQUEST_KINDS)
+    assert got.take(7, 1) == want.take(7, 1)
+    assert len(got) == len(want) == 0
+

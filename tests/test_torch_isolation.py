@@ -8,6 +8,9 @@
     chip_smoke.py) names them in an import; the same holds for a cluster
     worker (``--role worker`` on the cuda backend) and for a
     ``--multihost`` rank, each in its own interpreter;
+  - a fresh interpreter runs ``python -m sieve_torch serve --device cpu``
+    (cold-only), answers queries through the port's ``ServiceClient`` and
+    shuts down over the wire, and has loaded neither afterwards;
   - no command the package starts runs ``-m sieve``: a spawned process is
     ``-m sieve_torch``;
   - asking for the card where there is none raises a clear error instead
@@ -107,6 +110,7 @@ def test_run_loads_no_jax_and_no_sieve():
             "sieve_torch.service", "sieve_torch.service.index",
             "sieve_torch.service.store", "sieve_torch.service.exemplar",
             "sieve_torch.enumerate", "sieve_torch.debug", "sieve_torch.profile",
+            "sieve_torch.service.server", "sieve_torch.service.client",
             } <= set(got["modules"])
     loaded = [m for m in got["after"] if _forbidden(m)]
     assert not loaded, f"the port loaded {loaded}"
@@ -191,6 +195,52 @@ def test_multihost_rank_loads_no_jax_and_no_sieve():
     assert not loaded, f"the multihost rank loaded {loaded}"
 
 
+# serves in the main thread (it installs the SIGTERM handler) while a
+# client thread reads the address line, queries and shuts the server down
+_SERVE_PROBE = """
+import contextlib, io, json, sys, threading, time
+from sieve_torch.cli import main
+buf = io.StringIO()
+got = {}
+def client():
+    from sieve_torch.service import ServiceClient
+    t0 = time.time()
+    while "serving" not in buf.getvalue():
+        if time.time() - t0 > 60:
+            return
+        time.sleep(0.05)
+    addr = json.loads(buf.getvalue().splitlines()[0])["addr"]
+    with ServiceClient(addr, timeout_s=30) as c:
+        got["wire"] = c.wire_v
+        got["pi"] = c.pi(10**5)
+        got["batch"] = [m["value"] for m in c.query_batch(
+            [{"op": "pi", "x": 1000}, {"op": "is_prime", "x": 99991}])]
+        got["draining"] = c.shutdown()["draining"]
+t = threading.Thread(target=client)
+t.start()
+with contextlib.redirect_stdout(buf):
+    rc = main(["serve", "--n", "1e5", "--device", "cpu", "--addr", "127.0.0.1:0",
+               "--quiet", "--refresh-s", "0"])
+t.join(60)
+print(json.dumps({"rc": rc, "got": got, "after": sorted(sys.modules)}))
+"""
+
+
+def test_serve_loads_no_jax_and_no_sieve():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _SERVE_PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["rc"] == 0
+    assert got["got"] == {"wire": 2, "pi": 9592, "batch": [168, True],
+                          "draining": True}
+    assert {"sieve_torch.service.server", "sieve_torch.service.client",
+            "sieve_torch.backends.cuda"} <= set(got["after"])
+    loaded = [m for m in got["after"] if _forbidden(m)]
+    assert not loaded, f"the server loaded {loaded}"
+
+
 def test_cuda_device_without_card_raises(monkeypatch, capsys):
     """device='cuda' (the default) never falls back to the CPU."""
     from sieve_torch.cli import main
@@ -205,6 +255,10 @@ def test_cuda_device_without_card_raises(monkeypatch, capsys):
     assert main(["--n", "1e5", "--device", "cuda"]) == 2
     err = capsys.readouterr()
     assert "no CUDA device" in err.err and "pi(" not in err.out
+    # serve probes the card at start: exit 2 before it listens
+    assert main(["serve", "--n", "1e5", "--addr", "127.0.0.1:0"]) == 2
+    err = capsys.readouterr()
+    assert "no CUDA device" in err.err and "serving" not in err.out
     # the numpy backend has no device and still runs
     assert run_local(SieveConfig(n=10**5, backend="cpu-numpy")).pi == 9592
 
