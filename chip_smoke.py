@@ -29,6 +29,14 @@ of every query op (its fused launches == its cold chunks less those
 answered on the host), the mesh cold plane on the word kernel, and
 ``python3 -m sieve_torch serve`` as a process over a ledger the card
 wrote, queried hot and cold and shut down over the wire.
+Phase ``fabric`` runs the serving fabric over ledgers the card wrote,
+split in half at a segment boundary E: shard 0 and two shard-1 replicas
+behind one router in this process, under a concurrent burst across E held
+against exact oracles, and a cold window past the map on shard 1's fused
+kernel (shard 0 launches nothing); a failure drill (a replica stopped
+mid-burst, the whole shard down, a restart, an injected
+``svc_shard_down``); a FleetObserver with scrape gaps; and ``serve`` x2,
+``route`` and ``observe`` as processes.
 Each ``--other DIR`` names a checkout of another commit
 (the parent, unpacked with ``git archive``) or a variant of these
 sources, whose kernels are built too and timed in turns with these in
@@ -40,9 +48,10 @@ line:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
-The words, cluster, multihost, service and serve phases print their
-summaries as ``[words] {...}``, ``[cluster] {...}``, ``[multihost] {...}``,
-``[service] {...}`` and ``[serve] {...}`` lines before those three. Exits non-zero when torch sees no CUDA device, and when run
+The words, cluster, multihost, service, serve and fabric phases print
+their summaries as ``[words] {...}``, ``[cluster] {...}``,
+``[multihost] {...}``, ``[service] {...}``, ``[serve] {...}`` and
+``[fabric] {...}`` lines before those three. Exits non-zero when torch sees no CUDA device, and when run
 outside a checkout of the repository.
 """
 
@@ -60,6 +69,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -1460,21 +1470,26 @@ def _percentiles(replies: list[tuple[str, dict]]) -> dict:
             for op, v in sorted(by_op.items())}
 
 
-def _serve_burst(addr: str, jobs: list[tuple[str, dict]]) -> list[dict]:
-    """Each job on its own ``ServiceClient`` thread, all at once; the raw
-    replies in job order (a failed call raises here)."""
+def _serve_burst(addr: str, jobs: list[tuple[str, dict]], threads: int | None = None,
+                 after=None) -> list[dict]:
+    """The jobs on ``threads`` client threads (default: one per job, all at
+    once), one ``ServiceClient`` each; the raw replies in job order (a
+    failed call raises here). ``after(i)`` runs after the i-th reply."""
     from concurrent.futures import ThreadPoolExecutor
 
     from sieve_torch.service import ServiceClient
 
+    done = iter(range(len(jobs)))
+
     def one(job):
         op, kw = job
         with ServiceClient(addr, timeout_s=120) as c:
-            if op == "batch":
-                return c.query_batch(kw["members"])
-            return c.query(op, **kw)
+            r = c.query_batch(kw["members"]) if op == "batch" else c.query(op, **kw)
+        if after is not None:
+            after(next(done))
+        return r
 
-    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+    with ThreadPoolExecutor(max_workers=threads or len(jobs)) as pool:
         return list(pool.map(one, jobs))
 
 
@@ -1746,6 +1761,574 @@ def phase_serve(device="cuda", sizes=None) -> dict:
     out["seconds"] = time.perf_counter() - t0
     return out
 
+
+FABRIC_SIZES = {"n": 10**10, "segments": 16, "window": 10**8, "cli_window": 10**7,
+                "span": 1 << 22}
+# primes in [1e10, 1e10 + 1e8): the served cold window of phase serve
+COLD_WINDOW = {(10**10, 10**8): 4_341_930}
+
+
+def _prime_pi(x: int) -> int:
+    """pi(x) by Lucy's recursion on the values x // i, vectorized in numpy
+    (O(x^0.75)): an oracle for any point the fabric counts, independent of
+    every marking path of the port."""
+    if x < 2:
+        return 0
+    r = math.isqrt(x)
+    small = np.arange(-1, r, dtype=np.int64)  # small[v] = S(v), v <= r
+    large = np.zeros(r + 1, dtype=np.int64)  # large[i] = S(x // i)
+    large[1:] = x // np.arange(1, r + 1, dtype=np.int64) - 1
+    for p in range(2, r + 1):
+        if small[p] == small[p - 1]:
+            continue  # p is composite
+        sp, p2 = small[p - 1], p * p
+        # every right-hand side is read before the step writes (the
+        # recursion's old values): large first, then small
+        imax = min(r, x // p2)
+        ip = np.arange(1, imax + 1, dtype=np.int64) * p
+        inner = np.where(ip <= r, large[np.minimum(ip, r)], small[np.minimum(x // ip, r)])
+        large[1:imax + 1] -= inner - sp
+        if p2 <= r:
+            v = np.arange(p2, r + 1, dtype=np.int64)
+            small[p2:] -= small[v // p] - sp
+    return int(large[1])
+
+
+def _window_primes(lo: int, hi: int) -> np.ndarray:
+    """The primes of [lo, hi) by a plain sieve of the window."""
+    flags = np.ones(hi - lo, dtype=bool)
+    for p in seed_primes(math.isqrt(max(hi - 1, 1))).tolist():
+        start = max(p * p, -(-lo // p) * p)
+        flags[start - lo::p] = False
+    vals = np.flatnonzero(flags).astype(np.int64) + lo
+    return vals[vals >= 2]
+
+
+def _native_pairs(lo: int, hi: int, kind: str) -> int:
+    """Pairs of ``kind`` with both members in [lo, hi), by cpu-native."""
+    from sieve_torch.backends.cpu_native import CpuNativeWorker
+
+    seeds = seed_primes(math.isqrt(hi - 1))
+    worker = CpuNativeWorker(SieveConfig(n=hi, backend="cpu-native", count_kind=kind))
+    return worker.process_segment(lo, hi, seeds).twin_count
+
+
+class _Anchors:
+    """Exact pi(v) for v in [a, a + span) of a few anchors a: pi(a - 1) by
+    Lucy's recursion plus a plain sieve of the span."""
+
+    def __init__(self, anchors, span: int):
+        self.span = span
+        self.base = {a: _prime_pi(a - 1) for a in anchors}
+        self.win = {a: _window_primes(a, a + span) for a in anchors}
+
+    def pi(self, v: int) -> int:
+        for a, w in self.win.items():
+            if a - 1 <= v < a + self.span:
+                return self.base[a] + int(np.searchsorted(w, v, side="right"))
+        raise KeyError(f"{v} lies near no anchor")
+
+    def count(self, lo: int, hi: int) -> int:
+        return self.pi(hi - 1) - self.pi(lo - 1)
+
+    def is_prime(self, v: int) -> bool:
+        return self.count(v, v + 1) == 1
+
+
+def _write_ledger(ck: str, n: int, nseg: int, device: str, twins: bool):
+    """The port's counting run writes the ledger (its launches counted);
+    returns (launches, the run's config)."""
+    from sieve_torch.cli import build_parser, config_from_args
+
+    argv = ["--n", str(n), "--segments", str(nseg), "--checkpoint-dir", ck,
+            "--backend", "cuda", "--device", device] + (["--twins"] if twins else [])
+    mark_fused.launches = mark_split.launches = 0
+    got, wall = run_cli(argv)
+    launches = mark_fused.launches
+    _check_launches("fabric: the ledger's counting run",
+                    _device_segments(n, "odds", nseg) if device == "cuda" else 0, 0)
+    if got["pi"] != PI[n] or (twins and got["twin_pairs"] != TWINS[n]):
+        raise AssertionError(f"fabric ledger: pi {got['pi']} twins {got.get('twin_pairs')}")
+    log("fabric", f"sieve_torch {' '.join(argv[:4])}{' --twins' if twins else ''}: pi "
+                  f"{got['pi']}" + (f" twins {got['twin_pairs']}" if twins else "")
+                  + f" in {wall:.3f} s, fused launches {launches}")
+    cfg = config_from_args(build_parser().parse_args(argv + ["--quiet"]))
+    return launches, cfg
+
+
+def _split_ledger(cfg, root: Path, shard1_copies: int):
+    """The ledger's segments split in half at E, a segment boundary: one
+    directory for shard 0 and ``shard1_copies`` for shard 1 (each server
+    writes the segment store of its own directory)."""
+    from sieve_torch.checkpoint import Ledger
+
+    segs = sorted(Ledger.open_readonly(cfg).completed().values(), key=lambda s: s.lo)
+    half = len(segs) // 2
+    E = segs[half].lo
+    dirs = []
+    for name, part in [("shard0", segs[:half])] + [
+            (f"shard1_{i}", segs[half:]) for i in range(shard1_copies)]:
+        d = str(root / name)
+        led = Ledger.open(dataclasses.replace(cfg, checkpoint_dir=d))
+        for r in part:
+            led.record(r)
+        dirs.append(d)
+    return dirs, E, [s.lo for s in segs]
+
+
+def _expect(what: str, reply, want) -> None:
+    """A routed reply must be ok and equal ``want`` (a typed error raises)."""
+    if not isinstance(reply, dict) or not reply.get("ok"):
+        raise AssertionError(f"fabric: {what} -> {reply}")
+    got = reply["value"]
+    if isinstance(want, np.ndarray):
+        got, want = [int(v) for v in got], want.tolist()
+    if got != want:
+        raise AssertionError(f"fabric: {what} = {got}, expected {want}")
+
+
+def _unavailable(what: str, reply, shard: int, shard_range=None) -> None:
+    if reply.get("error") != "unavailable" or reply.get("shard") != shard \
+            or f"shard {shard}" not in reply.get("detail", "") \
+            or (shard_range is not None and reply.get("shard_range") != shard_range):
+        raise AssertionError(f"fabric: {what}: expected a typed unavailable naming "
+                             f"shard {shard}, got {reply}")
+
+
+def _fabric_inproc(device: str, sizes: dict, root: Path, out: dict) -> None:
+    """(1) the fabric in this process, (2) its failure drill, (3) the
+    observer over it."""
+    from sieve_torch.chaos import ChaosSchedule, parse_chaos
+    from sieve_torch.metrics import registry
+    from sieve_torch.service import (
+        ObserverSettings, RouterSettings, ServiceClient, ServiceSettings, Shard,
+        ShardMap, SieveRouter, SieveService, read_ring)
+    from sieve_torch.service.observe import ANOMALY_SIGNALS, RING_FILE, FleetObserver
+
+    n, span = sizes["n"], sizes["span"]
+    on_card = device == "cuda"
+    ledger_launches, cfg = _write_ledger(str(root / "src"), n, sizes["segments"],
+                                         device, twins=True)
+    out["ledger_launches"] = ledger_launches
+    dirs, E, los = _split_ledger(cfg, root, shard1_copies=2)
+    half = len(los) // 2
+    seg_size = los[1] - los[0]
+    # interior points lie in a segment's first index chunk, so a hot query
+    # materializes one chunk on the host, not a whole segment
+    off = min(span, seg_size) // 3
+    anchors = _Anchors([los[2], los[half - 1], E, los[half + 3]], span)
+    t_o = time.perf_counter()
+    pi_e = anchors.pi(E - 1)
+    near_e = _window_primes(E - 2000, E + 2000)
+    below_e, above_e = near_e[near_e < E], near_e[near_e >= E]
+    k_mid = anchors.pi(los[half + 3] - 1) + 5
+    out["oracle_s"] = time.perf_counter() - t_o
+
+    def shard_cfg(d):
+        return dataclasses.replace(cfg, checkpoint_dir=d)
+
+    svcs = [SieveService(shard_cfg(dirs[0]), ServiceSettings()),
+            SieveService(shard_cfg(dirs[1]), ServiceSettings(range_lo=E)),
+            SieveService(shard_cfg(dirs[2]), ServiceSettings(range_lo=E))]
+    router = None
+    try:
+        for s in svcs:
+            s.start()
+        smap = ShardMap([Shard(2, E, (svcs[0].addr,)),
+                         Shard(E, n + 1, (svcs[1].addr, svcs[2].addr))])
+        router = SieveRouter(smap, RouterSettings(quiet=True, wire_chaos=True)).start()
+        reg = registry()
+        probes0 = (reg.counter("router.probe_sent").value,
+                   reg.counter("router.probe_cached").value)
+
+        # --- (1) a concurrent burst across E ------------------------------
+        rng = np.random.default_rng(11)
+        members = []
+        for j in range(64):
+            a = [los[2], los[half - 1], E, los[half + 3]][j % 4]
+            v = a + int(rng.integers(0, off))
+            members.append([{"op": "pi", "x": v}, {"op": "is_prime", "x": v},
+                            {"op": "count", "lo": a, "hi": v}][j % 3])
+        w = 10**6
+        pair_lo, pair_hi = E - w, E + w
+        jobs = [
+            ("pi", {"x": n}, PI[n]),
+            ("pi", {"x": E}, anchors.pi(E)),
+            ("pi", {"x": E - 1}, pi_e),
+            ("pi", {"x": E + off}, anchors.pi(E + off)),
+            ("pi", {"x": los[2] + off}, anchors.pi(los[2] + off)),
+            ("count", {"lo": los[half - 1], "hi": E + off},
+             anchors.count(los[half - 1], E + off)),
+            ("count", {"lo": los[2] + 17, "hi": los[half + 3] + off},
+             anchors.count(los[2] + 17, los[half + 3] + off)),
+            ("count", {"lo": pair_lo, "hi": pair_hi, "kind": "twins"},
+             _native_pairs(pair_lo, pair_hi, "twins")),
+            ("count", {"lo": pair_lo, "hi": pair_hi, "kind": "cousins"},
+             _native_pairs(pair_lo, pair_hi, "cousins")),
+            ("nth_prime", {"k": pi_e + 7}, int(above_e[6])),
+            ("nth_prime", {"k": pi_e}, int(below_e[-1])),
+            ("nth_prime", {"k": k_mid}, int(anchors.win[los[half + 3]][4])),
+            ("primes", {"lo": E - 300, "hi": E + 300}, _window_primes(E - 300, E + 300)),
+            ("is_prime", {"x": int(below_e[-1])}, True),
+            ("is_prime", {"x": int(above_e[0])}, True),
+            ("is_prime", {"x": int(above_e[0]) + 1}, False),
+            ("batch", {"members": members}, None),
+        ]
+        t_b = time.perf_counter()
+        replies = _serve_burst(router.addr, [(op, kw) for op, kw, _ in jobs], 8)
+        out["burst_s"] = time.perf_counter() - t_b
+        for (op, kw, want), r in zip(jobs, replies):
+            if op != "batch":
+                _expect(f"{op} {kw}", r, want)
+        for m, r in zip(members, replies[-1]):
+            v = m.get("x", m.get("hi"))
+            want = (anchors.pi(v) if m["op"] == "pi" else anchors.is_prime(v)
+                    if m["op"] == "is_prime" else anchors.count(m["lo"], v))
+            _expect(f"batch member {m}", r, want)
+        with ServiceClient(router.addr, timeout_s=120) as c:
+            st = c.stats()
+            if st["totals_cached"] != 2 or st["spliced"] < 1:
+                raise AssertionError(f"fabric: totals_cached {st['totals_cached']}, "
+                                     f"spliced {st['spliced']}")
+            # a cold window past the map: the last shard's cold tier
+            lo, hi = n, n + sizes["window"]
+            want = _prime_pi(hi - 1) - PI[n]
+            if COLD_WINDOW.get((n, sizes["window"]), want) != want:
+                raise AssertionError(f"fabric: the oracle's cold window {want}")
+            mark_fused.launches = 0
+            t_c = time.perf_counter()
+            cold = c.query("count", lo=lo, hi=hi)
+            out["cold_s"] = time.perf_counter() - t_c
+            launches = mark_fused.launches
+            _expect(f"count({lo}, {hi})", cold, want)
+            st = c.stats()
+        per = []
+        for s in svcs:
+            chunks = s.stats()["cold_batched_chunks"]
+            worker = s.cold._worker
+            per.append((chunks, worker.host_segments if worker is not None else 0))
+        if per[0] != (0, 0) or svcs[0].cold._worker is not None:
+            raise AssertionError(f"fabric: shard 0 did cold work: {per[0]}")
+        own = sum(c - h for c, h in per[1:]) if on_card else 0
+        if launches != own or sum(c for c, _ in per[1:]) < 1:
+            raise AssertionError(f"fabric: {launches} fused launches, shard 1's "
+                                 f"chunks less host answers {per[1:]}")
+        probes = (reg.counter("router.probe_sent").value - probes0[0],
+                  reg.counter("router.probe_cached").value - probes0[1])
+        out["fabric"] = {
+            "E": E, "requests": st["requests"], "spliced": st["spliced"],
+            "totals_cached": st["totals_cached"], "failovers": st["failovers"],
+            "probe_sent": probes[0], "probe_cached": probes[1],
+            "cold_count": cold["value"], "cold_chunks": [c for c, _ in per],
+            "host_chunks": [h for _, h in per], "launches": launches,
+            # index chunks each server sieved on the host for hot queries
+            "materialized": [s.index.stats()["materialized"] for s in svcs],
+            "ops": _percentiles([(op, r) for (op, _, _), r in zip(jobs, replies)
+                                 if op != "batch"] + [("count", cold)])}
+        out["checked"] = len(jobs) - 1 + len(members) + 1
+        log("fabric", f"in-process fabric: E={E}, {len(jobs) - 1} ops + a batch of "
+                      f"{len(members)} on 8 threads in {out['burst_s']:.3f} s, every "
+                      f"reply == the oracle | spliced {st['spliced']} | count({lo}, {hi}) "
+                      f"= {cold['value']} in {out['cold_s']:.3f} s on shard 1: "
+                      f"chunks {per[1][0]}+{per[2][0]}, host {per[1][1]}+{per[2][1]}, "
+                      f"fused launches {launches}; shard 0 none")
+
+        # --- (2) the failure drill -----------------------------------------
+        drill = {}
+        plan = [("count", {"lo": E + 10, "hi": E + off}, anchors.count(E + 10, E + off)),
+                ("is_prime", {"x": int(above_e[1])}, True),
+                ("nth_prime", {"k": pi_e + 3}, int(above_e[2])),
+                ("primes", {"lo": E, "hi": E + 200}, _window_primes(E, E + 200))]
+        mid = threading.Event()
+        load = [plan[i % len(plan)] for i in range(48)]
+        f0 = st["failovers"]
+
+        def stop_first(i):
+            if i == 8:
+                svcs[1].stop()  # one shard-1 replica lost mid-burst
+                mid.set()
+
+        replies = _serve_burst(router.addr, [(op, kw) for op, kw, _ in load], 8,
+                               after=stop_first)
+        if not mid.is_set():
+            raise AssertionError("fabric drill: the replica was never stopped")
+        for (op, kw, want), r in zip(load, replies):
+            _expect(f"drill {op} {kw}", r, want)
+        with ServiceClient(router.addr, timeout_s=120) as c:
+            drill["failovers"] = c.stats()["failovers"] - f0
+            if drill["failovers"] < 1:
+                raise AssertionError("fabric drill: no failover after a replica stopped")
+            old = [svcs[1].addr, svcs[2].addr]
+            svcs[2].stop()  # the whole of shard 1 is down
+            rep = c.query("count", lo=E + 10, hi=E + off)
+            _unavailable("shard 1 down", rep, 1, [E, n + 1])
+            _expect("shard 0 during the outage",
+                    c.query("count", lo=los[2] + 17, hi=los[2] + off),
+                    anchors.count(los[2] + 17, los[2] + off))
+            _expect("pi(n) from cached totals", c.query("pi", x=n), PI[n])
+            # the replica comes back on its old address
+            svcs[1] = SieveService(shard_cfg(dirs[1]), ServiceSettings(range_lo=E),
+                                   addr=old[0]).start()
+            t_r = time.perf_counter()
+            while True:
+                rep = c.query("count", lo=E + 10, hi=E + off)
+                if rep.get("ok"):
+                    _expect("after the restart", rep, anchors.count(E + 10, E + off))
+                    break
+                if time.perf_counter() - t_r > 30:
+                    raise AssertionError(f"fabric drill: no recovery: {rep}")
+                time.sleep(0.2)
+            drill["recovery_s"] = time.perf_counter() - t_r
+            # a wire-injected svc_shard_down window on shard 0
+            seq = c.stats()["requests"]
+            ack = c.inject_chaos(",".join(f"svc_shard_down:0@s{seq + j}:1.5"
+                                          for j in (1, 2)))
+            if not ack.get("ok"):
+                raise AssertionError(f"fabric drill: chaos refused: {ack}")
+            _expect("shard 1 inside the window", c.query("is_prime", x=int(above_e[1])),
+                    True)
+            _unavailable("shard 0 held down",
+                         c.query("count", lo=los[2] + 17, hi=los[2] + off), 0)
+            if c.stats()["shard_down_windows"] < 1:
+                raise AssertionError("fabric drill: no shard_down window counted")
+            time.sleep(1.6)
+            t_w = time.perf_counter()
+            while True:
+                rep = c.query("count", lo=los[2] + 17, hi=los[2] + off)
+                if rep.get("ok"):
+                    _expect("after the window", rep, anchors.count(los[2] + 17, los[2] + off))
+                    break
+                if time.perf_counter() - t_w > 10:
+                    raise AssertionError(f"fabric drill: window never closed: {rep}")
+                time.sleep(0.2)
+            drill["window_recovery_s"] = time.perf_counter() - t_w
+            # the second replica back too, so the observer sees a whole fleet
+            svcs[2] = SieveService(shard_cfg(dirs[2]), ServiceSettings(range_lo=E),
+                                   addr=old[1]).start()
+            drill["shard_down_windows"] = c.stats()["shard_down_windows"]
+        out["drill"] = drill
+        out["checked"] += len(load) + 8
+        log("fabric", f"drill: a shard-1 replica stopped mid-burst -> 48 replies exact, "
+                      f"{drill['failovers']} failovers | shard 1 down -> typed "
+                      f"unavailable naming shard 1, pi(n) exact from cached totals | "
+                      f"restart on the old address -> exact in "
+                      f"{drill['recovery_s']:.3f} s | svc_shard_down on shard 0 -> typed, "
+                      f"recovered in {drill['window_recovery_s']:.3f} s, no restart")
+
+        # --- (3) the observer ---------------------------------------------
+        obs_dir = root / "observe"
+        targets = 1 + len(svcs)
+        spec = ",".join(f"svc_scrape_gap:{i}@s3" for i in range(targets))
+        obs = FleetObserver(router.addr, ObserverSettings(observe_dir=str(obs_dir),
+                                                          quiet=True),
+                            chaos=ChaosSchedule(parse_chaos(spec)))
+        try:
+            with ServiceClient(router.addr, timeout_s=120) as c:
+                for k in range(5):
+                    _expect("between scrapes", c.query("pi", x=E + off),
+                            anchors.pi(E + off))
+                    obs.scrape_once()
+                    time.sleep(0.2)
+            ostats = obs.stats()
+        finally:
+            obs.stop()
+        rows = read_ring(str(obs_dir / RING_FILE))
+        addrs = [router.addr] + [s.addr for s in svcs]
+        if [r["scrape"] for r in rows] != [1, 2, 3, 4, 5]:
+            raise AssertionError(f"observer: ring scrapes {[r['scrape'] for r in rows]}")
+        for r in rows:
+            if [t["addr"] for t in r["targets"]] != addrs or r["anomalies"]:
+                raise AssertionError(f"observer: row {r['scrape']}: {r}")
+            for t in r["targets"]:
+                gap = r["scrape"] == 3
+                if gap != (t["gap"] == "svc_scrape_gap") or gap == ("signals" in t) \
+                        or (not gap and t["gap"] is not None) \
+                        or (not gap and not set(ANOMALY_SIGNALS) <= set(t["signals"])):
+                    raise AssertionError(f"observer: scrape {r['scrape']} target {t}")
+        if ostats["gaps"] != targets or ostats["anomalies"] != 0:
+            raise AssertionError(f"observer: stats {ostats}")
+        out["observer"] = {"rows": len(rows), "targets": targets,
+                           "gaps": ostats["gaps"], "anomalies": ostats["anomalies"]}
+        log("fabric", f"observer: 5 scrapes of {targets} targets -> 5 ring rows, one "
+                      f"gap row per target at scrape 3 (no sample), 0 anomalies")
+    finally:
+        if router is not None:
+            router.stop()
+        for s in svcs:
+            s.stop()
+
+
+def _spawn(cmd: list[str], root: Path, tag: str, env: dict):
+    """``cmd`` started with its stdout and stderr in files under ``root``;
+    returns (process, a callable that waits for its first JSON line)."""
+    so, se = root / f"{tag}.out", root / f"{tag}.err"
+    with open(so, "w") as fo, open(se, "w") as fe:
+        proc = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent, env=env,
+                                stdout=fo, stderr=fe, text=True)
+    t0 = time.perf_counter()
+
+    def first_line(wait_s: float = 180) -> dict:
+        while True:
+            lines = so.read_text().splitlines()
+            if lines:
+                return json.loads(lines[0])
+            if proc.poll() is not None or time.perf_counter() - t0 > wait_s:
+                raise AssertionError(f"{tag}: no first line ({proc.poll()}): "
+                                     f"{se.read_text()[-2000:]}")
+            time.sleep(0.05)
+
+    first_line.path = so
+    return proc, first_line
+
+
+def _fabric_cli(device: str, sizes: dict, root: Path, out: dict) -> None:
+    """(4) ``serve`` x2, ``route`` and ``observe`` as processes over a
+    ledger the card wrote: hot and cold queries through the router, the
+    observer's scrapes, a merged trace, and every process exits 0."""
+    from sieve_torch.service import ServiceClient, ServiceSettings, read_ring
+    from sieve_torch.service.observe import RING_FILE
+
+    n, nseg, window = sizes["n"], sizes["segments"], sizes["cli_window"]
+    on_card = device == "cuda"
+    # serve has no --twins (the ledger's config hash includes it)
+    out["ledger_launches"], cfg = _write_ledger(str(root / "src"), n, nseg, device,
+                                                twins=False)
+    dirs, E, _los = _split_ledger(cfg, root, shard1_copies=1)
+    env = dict(os.environ, SIEVE_SVC_TELEMETRY="1")
+    trace_file = root / "fleet_trace.json"
+    py = [sys.executable, "-m", "sieve_torch"]
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        heads = []
+        for i, d in enumerate(dirs):  # both start at once
+            cmd = py + ["serve", "--n", str(n), "--segments", str(nseg),
+                        "--checkpoint-dir", d, "--addr", "127.0.0.1:0", "--quiet"]
+            cmd += ["--range-lo", str(E)] if i else []
+            cmd += [] if on_card else ["--device", device]
+            proc, first_line = _spawn(cmd, root, f"serve{i}", env)
+            procs.append(proc)
+            heads.append(first_line)
+        addrs = [first_line()["addr"] for first_line in heads]
+        out["serve_start_s"] = time.perf_counter() - t0
+        t_r = time.perf_counter()
+        route, first_line = _spawn(
+            py + ["route", "--addr", "127.0.0.1:0", "--quiet", "--trace", str(trace_file),
+                  "--shard", f"2:{E}={addrs[0]}", "--shard", f"{E}:{n + 1}={addrs[1]}"],
+            root, "route", env)
+        procs.append(route)
+        head = first_line()
+        out["route_start_s"] = time.perf_counter() - t_r
+        if head.get("event") != "routing" or head["range"] != [2, n + 1]:
+            raise AssertionError(f"route: first line {head}")
+        near_e = _window_primes(E, E + 2000)
+        pi_e = _prime_pi(E - 1)
+        lo, hi = n, n + window
+        with ServiceClient(head["addr"], timeout_s=120) as c:
+            hot = [c.query("pi", x=n), c.query("nth_prime", k=pi_e + 7),
+                   c.query("is_prime", x=int(near_e[0]))]
+            for what, r, want in zip(("pi(n)", "nth_prime", "is_prime"), hot,
+                                     (PI[n], int(near_e[6]), True)):
+                _expect(f"CLI {what}", r, want)
+            cold = c.query("count", lo=lo, hi=hi)
+            _expect(f"CLI count({lo}, {hi})", cold, _prime_pi(hi - 1) - PI[n])
+            t_o = time.perf_counter()
+            obs_dir = root / "observe_cli"
+            observe = subprocess.run(
+                py + ["observe", "--router", head["addr"], "--scrapes", "3", "--scrape-s",
+                      "0.2", "--observe-dir", str(obs_dir), "--quiet"],
+                cwd=Path(__file__).resolve().parent, env=env, capture_output=True,
+                text=True, timeout=120)
+            out["observe_s"] = time.perf_counter() - t_o
+            if observe.returncode != 0:
+                raise AssertionError(f"observe exited {observe.returncode}: "
+                                     f"{observe.stderr[-2000:]}")
+            last = json.loads(observe.stdout.splitlines()[-1])
+            rows = read_ring(str(obs_dir / RING_FILE))
+            if last.get("event") != "observed" or last["scrapes"] != 3 or len(rows) != 3 \
+                    or last["gaps"] != 0:
+                raise AssertionError(f"observe: {last}, {len(rows)} ring rows")
+            shard_stats, launched = [], []
+            for a in addrs:
+                with ServiceClient(a, timeout_s=60) as s:
+                    shard_stats.append(s.stats())
+                    launched.append(s.metrics().get("kernel.mark_fused.launches",
+                                                    {}).get("value", 0))
+            c.shutdown()  # the router drains, flushes the rings, saves the trace
+        rc = route.wait(timeout=60)
+        drained = json.loads(first_line.path.read_text().splitlines()[-1])
+        if rc != 0 or drained.get("event") != "drained" or not drained.get("clean"):
+            raise AssertionError(f"route exited {rc}: {drained}")
+        for a in addrs:
+            with ServiceClient(a, timeout_s=60) as s:
+                s.shutdown()
+        rcs = [p.wait(timeout=60) for p in procs[:2]]
+        if rcs != [0, 0]:
+            raise AssertionError(f"serve exited {rcs}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    defaults = ServiceSettings()
+    covered = n + 1
+    chunks = []
+    a = covered
+    while a < hi:
+        b = min((a // defaults.cold_chunk + 1) * defaults.cold_chunk, hi)
+        chunks.append((a, b))
+        a = b
+    host = _host_chunks("odds", chunks)
+    want = (len(chunks) - host) if on_card else 0
+    if shard_stats[0]["cold_batched_chunks"] or launched[0] \
+            or shard_stats[1]["cold_batched_chunks"] != len(chunks) or launched[1] != want:
+        raise AssertionError(f"CLI: shard launches {launched}, chunks "
+                             f"{[s['cold_batched_chunks'] for s in shard_stats]}, the "
+                             f"grid gives {len(chunks)} ({host} on the host)")
+    events = json.loads(trace_file.read_text())["traceEvents"]
+    tracks = sorted(e["args"]["name"] for e in events
+                    if e.get("ph") == "M" and e.get("name") == "process_name"
+                    and str((e.get("args") or {}).get("name", "")).startswith("shard"))
+    if len(tracks) != 2 or not any(e.get("name") == "rpc.route" for e in events):
+        raise AssertionError(f"CLI: merged trace tracks {tracks}")
+    out.update(E=E, launches=launched[1], chunks=len(chunks), host_chunks=host, checked=4,
+               cold_count=cold["value"], trace_tracks=tracks, observe_rows=len(rows),
+               ops=_percentiles([("pi", hot[0]), ("nth_prime", hot[1]),
+                                 ("is_prime", hot[2]), ("count", cold)]))
+    log("fabric", f"CLI: two serve processes up in {out['serve_start_s']:.3f} s, route "
+                  f"in {out['route_start_s']:.3f} s | hot pi/nth_prime/is_prime exact | "
+                  f"count({lo}, {hi}) = {cold['value']} on shard 1's {len(chunks)} "
+                  f"chunks, {launched[1]} fused launches there, 0 on shard 0 | observe "
+                  f"--scrapes 3 -> 3 ring rows in {out['observe_s']:.3f} s | merged "
+                  f"trace tracks {tracks} | every process exited 0")
+
+
+def phase_fabric(device="cuda", sizes=None) -> dict:
+    """The serving fabric with its shard servers' cold chunks on the card:
+    (1) shard 0 [2, E) and two shard-1 replicas [E, n + 1) behind one
+    router in this process, under a concurrent burst across E held against
+    exact oracles, and a cold window past the map on shard 1's fused
+    kernel; (2) the failure drill; (3) a FleetObserver with scrape gaps;
+    (4) ``serve``, ``route`` and ``observe`` as processes."""
+    sizes = sizes or FABRIC_SIZES
+    t0 = time.perf_counter()
+    out = {"inproc": {}, "cli": {}}
+    with tempfile.TemporaryDirectory(prefix="sieve_fabric_") as tmp:
+        (Path(tmp) / "a").mkdir()
+        (Path(tmp) / "b").mkdir()
+        _fabric_inproc(device, sizes, Path(tmp) / "a", out["inproc"])
+        _fabric_cli(device, sizes, Path(tmp) / "b", out["cli"])
+    out["launches"] = (out["inproc"]["ledger_launches"]
+                       + out["inproc"]["fabric"]["launches"]
+                       + out["cli"]["ledger_launches"] + out["cli"]["launches"])
+    out["checks"] = {"replies": out["inproc"].pop("checked") + out["cli"].pop("checked"),
+                     "ring_rows": out["inproc"]["observer"]["rows"]
+                     + out["cli"]["observe_rows"],
+                     "processes_exited_0": 4}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, action="append", default=[],
@@ -1800,6 +2383,10 @@ def main(argv=None) -> int:
     log("launches", f"serve: mark_fused {serve['launches']} (the loop plane's cold "
                     "chunks, the CLI ledger's counting run and the CLI server's "
                     "cold window)")
+    fabric = timed("fabric", phase_fabric)
+    log("launches", f"fabric: mark_fused {fabric['launches']} (the two ledgers' "
+                    "counting runs and shard 1's cold chunks, in process and in "
+                    "the serve process)")
     log("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s: "
                 + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
     wt = words["times"]
@@ -1818,6 +2405,7 @@ def main(argv=None) -> int:
     print("[multihost] " + json.dumps(multihost))
     print("[service] " + json.dumps(service))
     print("[serve] " + json.dumps(serve))
+    print("[fabric] " + json.dumps(fabric))
     kernels = [{
         "name": "fused_mark",
         "route": "cuda",
@@ -1825,7 +2413,7 @@ def main(argv=None) -> int:
         "replaces": "sieve/kernels/pallas_mark.py:694",
         "launches": (launches + rounds["launches"]["fused"] + cluster["launches"]
                      + multihost["launches"] + service["launches"]
-                     + serve["launches"]),
+                     + serve["launches"] + fabric["launches"]),
         "max_abs_err": worst,
         "ms": times["counting"]["ms"],
         "plain_ms": times["counting"]["plain_ms"],

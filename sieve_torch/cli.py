@@ -12,6 +12,10 @@ Examples:
     python -m sieve_torch --emit-primes 999999900:1000000000 [--json]
     python -m sieve_torch serve --n 1e10 --segments 16 --checkpoint-dir ck \
         --addr 127.0.0.1:0 [--cold-backend mesh] [--procs 2]
+    python -m sieve_torch route --addr 127.0.0.1:0 \
+        --shard 2:5000000000=HOST:PORT --shard 5000000000:10000000001=HOST:PORT
+    python -m sieve_torch observe --router HOST:PORT --scrapes 3 \
+        --observe-dir obs
 
 ``--workers`` > 1 or ``--rounds`` > 1 on the cuda or torch backend runs
 the rounds path (sieve_torch/parallel/mesh.py), one shard per card;
@@ -35,6 +39,13 @@ SIGTERM or the ``shutdown`` op. Its flags are the reference's, except
 that ``--backend`` defaults to ``cuda`` and ``--device`` places it: a
 device backend on a card that is not there exits 2 at start, before the
 server listens.
+
+``route`` fronts range shards (each a replica set of ``serve`` processes,
+every shard but the first started with ``--range-lo``) with one router
+(sieve_torch/service/router.py), and ``observe`` scrapes a router and its
+replicas into a snapshot ring (sieve_torch/service/observe.py). Both are
+host code: they load no torch, and their flags and printed lines are the
+reference's.
 """
 
 from __future__ import annotations
@@ -42,6 +53,8 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import threading
+import time
 
 from sieve_torch import env
 from sieve_torch.config import BACKENDS, COUNT_KINDS, PACKINGS, SieveConfig
@@ -517,7 +530,6 @@ def _serve_supervisor(argv: list[str], args, procs: int) -> int:
     import signal
     import socket
     import subprocess
-    import threading
 
     from sieve_torch.rpc import parse_addr
 
@@ -626,15 +638,243 @@ def _serve_supervisor(argv: list[str], args, procs: int) -> int:
                 p.kill()
 
 
+def build_route_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="sieve_torch route",
+        description="Range-shard router: one RPC front door over shard "
+                    "replica sets (sieve_torch/service/router.py). Speaks the "
+                    "same wire protocol as serve on both sides, so "
+                    "existing clients need zero changes.",
+    )
+    p.add_argument("--addr", default="127.0.0.1:7733",
+                   help="listen address host:port (port 0 picks a free one; "
+                        "the chosen address is printed as a JSON line)")
+    p.add_argument("--shard", action="append", default=None, metavar="LO:HI=ADDRS",
+                   help="one shard covering [LO, HI) backed by comma-"
+                        "separated replica addresses, e.g. "
+                        "--shard 2:1e6=127.0.0.1:7723,127.0.0.1:7724 "
+                        "(repeat per shard; shards must tile the range "
+                        "contiguously). Alternative to --shard-map")
+    p.add_argument("--shard-map", default=None, metavar="FILE",
+                   help="JSON shard map file: {\"shards\": [{\"lo\", \"hi\", "
+                        "\"addrs\"}, ...]}")
+    p.add_argument("--deadline-s", type=float, default=None,
+                   help="default per-request deadline; the REMAINING budget "
+                        "is forwarded to every downstream shard call "
+                        "(default 30)")
+    p.add_argument("--timeout-s", type=float, default=None,
+                   help="downstream socket timeout (default 60)")
+    p.add_argument("--probe-ttl-s", type=float, default=None,
+                   help="shard health-probe cache TTL; 0 re-probes every "
+                        "selection (default 2.0)")
+    p.add_argument("--rounds", type=int, default=None,
+                   help="failover sweeps across each shard's replicas "
+                        "before giving up (default 2)")
+    p.add_argument("--drain-s", type=float, default=None,
+                   help="graceful-drain budget after SIGTERM/shutdown "
+                        "(default 5.0)")
+    p.add_argument("--allow-chaos", action="store_true",
+                   help="accept wire-injected chaos messages (default OFF)")
+    p.add_argument("--chaos", default=None,
+                   help="router fault schedule, e.g. 'svc_shard_down:1@s3:"
+                        "2.0' (segment number = router request sequence; "
+                        "worker = shard index, any = every shard)")
+    p.add_argument("--trace", default=None, dest="trace_file", metavar="FILE",
+                   help="write rpc.route / route.scatter spans as Chrome "
+                        "trace-event JSON on shutdown")
+    p.add_argument("--debug-dir", default=None, dest="debug_dir",
+                   help="flight-recorder bundle directory: a shard going "
+                        "dark (router_shard_down) or a crash freezes a "
+                        "timestamped postmortem bundle here")
+    p.add_argument("--prof-hz", type=float, default=None, dest="prof_hz",
+                   help="continuous-profiler sampling rate (default "
+                        "SIEVE_PROF_HZ/19; 0 disables the sampler)")
+    p.add_argument("--metrics-file", default=None, dest="metrics_file")
+    p.add_argument("--quiet", action="store_true",
+                   help="suppress per-request stderr event lines")
+    return p
+
+
+def _route(argv: list[str]) -> int:
+    args = build_route_parser().parse_args(argv)
+
+    from sieve_torch import metrics, trace
+    from sieve_torch.service import RouterSettings, ShardMap, SieveRouter
+
+    if bool(args.shard) == bool(args.shard_map):
+        raise ValueError("route needs exactly one of --shard (repeatable) "
+                         "or --shard-map FILE")
+    if args.shard_map:
+        shardmap = ShardMap.from_json(args.shard_map)
+    else:
+        shardmap = ShardMap.from_flags(args.shard)
+
+    overrides = {}
+    if args.deadline_s is not None:
+        overrides["default_deadline_s"] = args.deadline_s
+    if args.timeout_s is not None:
+        overrides["timeout_s"] = args.timeout_s
+    if args.probe_ttl_s is not None:
+        overrides["probe_ttl_s"] = args.probe_ttl_s
+    if args.rounds is not None:
+        overrides["rounds"] = args.rounds
+    if args.drain_s is not None:
+        overrides["drain_s"] = args.drain_s
+    if args.allow_chaos:
+        overrides["wire_chaos"] = True
+    if args.quiet:
+        overrides["quiet"] = True
+    if args.debug_dir is not None:
+        overrides["debug_dir"] = args.debug_dir
+    if args.prof_hz is not None:
+        overrides["prof_hz"] = args.prof_hz
+    settings = RouterSettings.from_env(**overrides)
+
+    file_sink = None
+    if args.metrics_file:
+        file_sink = metrics.FileSink(args.metrics_file)
+        metrics.add_sink(file_sink)
+    if args.trace_file:
+        trace.enable()
+    router = SieveRouter(shardmap, settings, addr=args.addr,
+                         chaos_spec=args.chaos or "")
+    try:
+        router.start()
+        # one parseable line so wrappers can find the bound port when
+        # --addr uses port 0
+        print(json.dumps({
+            "event": "routing",
+            "addr": router.addr,
+            "range": [shardmap.lo, shardmap.hi],
+            "shards": [s.to_dict() for s in shardmap],
+        }), flush=True)
+        import signal
+
+        signal.signal(signal.SIGTERM, lambda *_: router.drain())
+        router.drain_event.wait()  # route until SIGTERM/shutdown
+        drained = router.wait_drained(settings.drain_s)
+        print(json.dumps({
+            "event": "drained",
+            "clean": drained,
+            "stats": {k: router.stats()[k]
+                      for k in ("requests", "draining_replies")},
+        }), flush=True)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        router.stop()
+        if args.trace_file:
+            trace.disable()
+            trace.save(args.trace_file)
+        if file_sink is not None:
+            metrics.remove_sink(file_sink)
+            file_sink.close()
+    return 0
+
+
+def build_observe_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="sieve_torch observe",
+        description="Capacity observatory daemon: scrape a router and "
+                    "every advertised shard replica on a cadence, persist "
+                    "a CRC'd ring of downsampled fleet snapshots, and run "
+                    "the EWMA anomaly engine (fleet_anomaly / "
+                    "scaling_advice events; sieve_torch/service/observe.py)",
+    )
+    p.add_argument("--router", required=True, metavar="ADDR",
+                   help="router host:port to scrape (shard replicas are "
+                        "discovered from its health reply)")
+    p.add_argument("--observe-dir", default=None,
+                   help="directory for the snapshot ring (fleet_ring.bin) "
+                        "and anomaly-triggered fleet debug bundles; "
+                        "omitted = in-memory trends only")
+    p.add_argument("--scrape-s", type=float, default=None,
+                   help="seconds between scrape cycles (default 1.0)")
+    p.add_argument("--timeout-s", type=float, default=None,
+                   help="per-endpoint RPC timeout (default 5.0)")
+    p.add_argument("--scrapes", type=int, default=0, metavar="N",
+                   help="stop after N scrape cycles (0 = run until "
+                        "SIGTERM; N > 0 runs the cycles inline and exits "
+                        "— the smoke-test mode)")
+    p.add_argument("--chaos", default=None,
+                   help="observer fault schedule, e.g. "
+                        "'svc_scrape_gap:any@s3' (segment number = the "
+                        "observer's scrape counter; worker = target index "
+                        "in discovery order, any = every target)")
+    p.add_argument("--metrics-file", default=None, dest="metrics_file")
+    p.add_argument("--quiet", action="store_true",
+                   help="suppress per-scrape stderr event lines")
+    return p
+
+
+def _observe(argv: list[str]) -> int:
+    args = build_observe_parser().parse_args(argv)
+
+    from sieve_torch import metrics
+    from sieve_torch.chaos import ChaosSchedule, parse_chaos
+    from sieve_torch.service.observe import FleetObserver, ObserverSettings
+
+    overrides: dict = {}
+    if args.scrape_s is not None:
+        overrides["scrape_s"] = args.scrape_s
+    if args.timeout_s is not None:
+        overrides["timeout_s"] = args.timeout_s
+    if args.observe_dir is not None:
+        overrides["observe_dir"] = args.observe_dir
+    if args.quiet:
+        overrides["quiet"] = True
+    settings = ObserverSettings.from_env(**overrides)
+    chaos = ChaosSchedule(parse_chaos(args.chaos or ""))
+
+    file_sink = None
+    if args.metrics_file:
+        file_sink = metrics.FileSink(args.metrics_file)
+        metrics.add_sink(file_sink)
+    obs = FleetObserver(args.router, settings, chaos=chaos)
+    try:
+        print(json.dumps({
+            "event": "observing",
+            "router": args.router,
+            "observe_dir": settings.observe_dir,
+            "scrape_s": settings.scrape_s,
+        }), flush=True)
+        if args.scrapes > 0:
+            # bounded inline mode: deterministic for smoke tests and cron
+            for _ in range(args.scrapes):
+                obs.scrape_once()
+                if _ < args.scrapes - 1:
+                    time.sleep(settings.scrape_s)
+        else:
+            import signal
+
+            stop = threading.Event()
+            signal.signal(signal.SIGTERM, lambda *_: stop.set())
+            signal.signal(signal.SIGINT, lambda *_: stop.set())
+            obs.start()
+            stop.wait()
+        print(json.dumps({"event": "observed", **obs.stats()}),
+              flush=True)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        obs.stop()
+        if file_sink is not None:
+            metrics.remove_sink(file_sink)
+            file_sink.close()
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     if argv is None:
         argv = sys.argv[1:]
-    if argv and argv[0] == "serve":
-        try:
-            return _serve(argv[1:])
-        except (ValueError, RuntimeError, ImportError) as e:
-            print(f"sieve_torch: error: {e}", file=sys.stderr)
-            return 2
+    for name, sub in (("serve", _serve), ("route", _route),
+                      ("observe", _observe)):
+        if argv and argv[0] == name:
+            try:
+                return sub(argv[1:])
+            except (ValueError, RuntimeError, ImportError) as e:
+                print(f"sieve_torch: error: {e}", file=sys.stderr)
+                return 2
     args = build_parser().parse_args(argv)
     try:
         if args.emit_primes is not None:

@@ -26,7 +26,21 @@ into a queryable store, all of it host numpy as in the reference:
   ``hello`` negotiation of the v2 columnar wire), :class:`ClientPool` and
   the failover client :class:`ReplicaSet`.
 
-The range-sharded fabric (router, shards, observer) is not here yet.
+The range-sharded fabric, all host code as in the reference (it loads no
+torch; its shard servers' cold chunks run on the card):
+
+* :mod:`sieve_torch.service.shards`: :class:`ShardMap`, the validated
+  contiguous partition of the keyspace into :class:`Shard` ranges (the
+  last shard's cold tier extends past the map's ``hi``);
+* :mod:`sieve_torch.service.router`: :class:`SieveRouter`, which fronts
+  the shards' replica sets with the single server's wire protocol:
+  scatter-gather counts over cached full-shard totals, pair counts
+  spliced at each edge, ``nth_prime`` over cumulative totals, typed
+  :class:`ShardUnavailable` naming the shard, and :class:`RouterSettings`;
+* :mod:`sieve_torch.service.observe`: :class:`FleetObserver`, which
+  scrapes the router and every replica into a CRC'd :class:`SnapshotRing`
+  (:func:`read_ring` reads it) under an EWMA and robust-z anomaly engine,
+  with :class:`ObserverSettings`.
 """
 
 from sieve_torch.service.client import (
@@ -38,6 +52,17 @@ from sieve_torch.service.client import (
 )
 from sieve_torch.service.exemplar import ExemplarSampler, load_exemplars
 from sieve_torch.service.index import BitsetLRU, QueryCtx, SieveIndex
+from sieve_torch.service.observe import (
+    FleetObserver,
+    ObserverSettings,
+    SnapshotRing,
+    read_ring,
+)
+from sieve_torch.service.router import (
+    RouterSettings,
+    ShardUnavailable,
+    SieveRouter,
+)
 from sieve_torch.service.server import (
     BadRequest,
     ColdBatcher,
@@ -49,6 +74,7 @@ from sieve_torch.service.server import (
     ServiceSettings,
     SieveService,
 )
+from sieve_torch.service.shards import Shard, ShardMap
 from sieve_torch.service.store import StoreSettings, TieredSegmentStore
 
 __all__ = [
@@ -61,16 +87,25 @@ __all__ = [
     "Degraded",
     "Draining",
     "ExemplarSampler",
+    "FleetObserver",
     "LedgerFollower",
+    "ObserverSettings",
     "Overloaded",
     "QueryCtx",
     "ReplicaSet",
+    "RouterSettings",
     "ServiceClient",
     "ServiceError",
     "ServiceSettings",
+    "Shard",
+    "ShardMap",
+    "ShardUnavailable",
     "SieveIndex",
+    "SieveRouter",
     "SieveService",
+    "SnapshotRing",
     "StoreSettings",
     "TieredSegmentStore",
     "load_exemplars",
+    "read_ring",
 ]

@@ -11,6 +11,10 @@
   - a fresh interpreter runs ``python -m sieve_torch serve --device cpu``
     (cold-only), answers queries through the port's ``ServiceClient`` and
     shuts down over the wire, and has loaded neither afterwards;
+  - a fresh interpreter imports the fabric (shards, router, observer) and
+    runs ``route --help`` and ``observe --help``, and has loaded neither
+    ``torch`` nor ``jax`` nor ``sieve``: a router or observer process pays
+    no torch start and opens no CUDA context;
   - no command the package starts runs ``-m sieve``: a spawned process is
     ``-m sieve_torch``;
   - asking for the card where there is none raises a clear error instead
@@ -111,6 +115,8 @@ def test_run_loads_no_jax_and_no_sieve():
             "sieve_torch.service.store", "sieve_torch.service.exemplar",
             "sieve_torch.enumerate", "sieve_torch.debug", "sieve_torch.profile",
             "sieve_torch.service.server", "sieve_torch.service.client",
+            "sieve_torch.service.shards", "sieve_torch.service.router",
+            "sieve_torch.service.observe",
             } <= set(got["modules"])
     loaded = [m for m in got["after"] if _forbidden(m)]
     assert not loaded, f"the port loaded {loaded}"
@@ -239,6 +245,37 @@ def test_serve_loads_no_jax_and_no_sieve():
             "sieve_torch.backends.cuda"} <= set(got["after"])
     loaded = [m for m in got["after"] if _forbidden(m)]
     assert not loaded, f"the server loaded {loaded}"
+
+
+_FABRIC_PROBE = """
+import contextlib, io, json, sys
+import sieve_torch.service.shards, sieve_torch.service.router
+import sieve_torch.service.observe
+from sieve_torch.cli import main
+out, codes = io.StringIO(), []
+for sub in ("route", "observe"):
+    with contextlib.redirect_stdout(out):
+        try:
+            main([sub, "--help"])
+        except SystemExit as e:
+            codes.append(e.code)
+print(json.dumps({"codes": codes, "help": out.getvalue(),
+                  "after": sorted(sys.modules)}))
+"""
+
+
+def test_fabric_loads_no_torch_no_jax_no_sieve():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _FABRIC_PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["codes"] == [0, 0]
+    assert "usage: sieve_torch route" in got["help"]
+    assert "usage: sieve_torch observe" in got["help"]
+    loaded = [m for m in got["after"] if m == "torch" or m.startswith("torch.")
+              or _forbidden(m)]
+    assert not loaded, f"the fabric loaded {loaded}"
 
 
 def test_cuda_device_without_card_raises(monkeypatch, capsys):

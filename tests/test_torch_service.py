@@ -40,6 +40,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import sieve.metrics as ref_metrics
 import sieve.service.server as ref_server
 import sieve_torch.service.server as port_server
 from sieve.config import SieveConfig as RefConfig
@@ -261,6 +262,7 @@ def _ops(covered: int, total: int) -> list[tuple[str, dict]]:
 @pytest.mark.parametrize("negotiate", [False, True], ids=["v1", "v2"])
 def test_every_query_op_equals_reference(ledger_dir, port_backend, tmp_path,
                                          negotiate):
+    ref_before = ref_metrics.registry().snapshot()
     with served_pair(tmp_path, ledger_dir, port_backend,
                      max_primes=20_000) as (ref, port):
         covered, total = port.index.covered_hi, port.index.total_primes
@@ -285,10 +287,13 @@ def test_every_query_op_equals_reference(ledger_dir, port_backend, tmp_path,
             assert_same(lambda c: c.health(), a, b)
             assert plain_stats(b.stats()) == plain_stats(a.stats())
             # metrics / debug / profile / exemplars carry clocks and
-            # sampler state: their shape is the reference's
-            # (the registry is process-wide: compare the service's names)
+            # sampler state: their shape is the reference's (each registry
+            # is process-wide and holds what earlier tests in this process
+            # recorded: compare the service's names this run touched)
             ma, mb = a.metrics(), b.metrics()
-            assert {k for k in ma if k.startswith("service")} <= set(mb)
+            touched = {k for k, v in ma.items() if k.startswith("service")
+                       and ref_before.get(k) != v}
+            assert touched and touched <= set(mb)
             assert set(b.debug()) == set(a.debug())
             pa, pb = a.profile(), b.profile()
             assert set(pb) == set(pa) and pb["role"] == pa["role"]
