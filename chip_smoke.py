@@ -37,6 +37,15 @@ kernel (shard 0 launches nothing); a failure drill (a replica stopped
 mid-burst, the whole shard down, a restart, an injected
 ``svc_shard_down``); a FleetObserver with scrape gaps; and ``serve`` x2,
 ``route`` and ``observe`` as processes.
+Phase ``profile`` drives the measurement plane: four runs through the CLI
+with ``--profile-dir`` (n=1e10 in 5 segments, the n=1e11 ``--rounds 64``
+run, the split kernel under SIEVE_PALLAS_FUSED=0, the torch backend),
+each exact, whose torch.profiler traces must hold as many kernel events
+of each kernel as its wrapper counted launches; then every tool of
+sieve_torch/tools on the card (profile_kernel also as a ``python -m``
+process, the depth regime among them), each exiting 0; and the depth
+segment [10^12 - 10^9, 10^12 + 1), which phase ``kernel`` holds bit for
+bit against the plain versions, against pi(10^12) - pi(10^12 - 10^9 - 1).
 Each ``--other DIR`` names a checkout of another commit
 (the parent, unpacked with ``git archive``) or a variant of these
 sources, whose kernels are built too and timed in turns with these in
@@ -48,10 +57,10 @@ line:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
-The words, cluster, multihost, service, serve and fabric phases print
-their summaries as ``[words] {...}``, ``[cluster] {...}``,
-``[multihost] {...}``, ``[service] {...}``, ``[serve] {...}`` and
-``[fabric] {...}`` lines before those three. Exits non-zero when torch sees no CUDA device, and when run
+The words, cluster, multihost, service, serve, fabric and profile phases
+print their summaries as ``[words] {...}``, ``[cluster] {...}``,
+``[multihost] {...}``, ``[service] {...}``, ``[serve] {...}``,
+``[fabric] {...}`` and ``[profile] {...}`` lines before those three. Exits non-zero when torch sees no CUDA device, and when run
 outside a checkout of the repository.
 """
 
@@ -60,10 +69,12 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gzip
 import io
 import json
 import math
 import os
+import re
 import socket
 import statistics
 import subprocess
@@ -113,6 +124,13 @@ INT32_LANES_PER_SM = 64          # Hopper: 32-bit add, shift, logic per SM per c
 POPC_LANES_PER_SM = 16           # Hopper: population counts per SM per clock
 SPIN_CYCLES = 2_000_000          # ~1 ms at the H100's clock
 KINDS = ("none", "twins", "cousins")
+# the depth segment [10^12 - 10^9, 10^12 + 1) and pi(10^12), the published
+# value (an oracle independent of every marking path)
+DEPTH_LO, DEPTH_HI = 10**12 - 10**9, 10**12 + 1
+PI_1E12 = 37_607_912_018
+# the plain versions launch one slice assignment per live spec per chunk
+# of words: a check segment whose chunks would need more runs as one chunk
+PLAIN_LAUNCHES = 300_000
 # (packing, lo, hi, seed limit or None for isqrt(hi - 1), env) of the
 # kernel-vs-plain segments: a multi-tile and an in-tile sliver segment per
 # packing, the group-D segment, a non-empty flat list, one n=1e8 segment
@@ -130,6 +148,8 @@ CHECK_SEGMENTS = [
     ("wheel30", 2, 10**8 + 1, None, {}),
     # the last segment of the main path's n=1e10 odds run in 5 segments
     ("odds", 8_000_000_000, 10**10 + 1, 10**5, {}),
+    # the depth regime: the full 78,498-seed set, 609 group-D rows
+    ("odds", DEPTH_LO, DEPTH_HI, None, {}),
 ]
 # (n, rounds, which round) of the rounds path held against the plain
 # versions too: the n=1e11 middle round the streaming run launches, and the
@@ -226,6 +246,16 @@ def _round_segment(n: int, rounds: int, which: str):
     return CudaChain("odds", seed_primes(math.isqrt(n)), wpad).prepare(s.lo, s.hi)
 
 
+def _chunk_words(seg) -> int:
+    """Words per chunk of a check segment's plain versions: 2^20, or the
+    whole segment where 2^20-word chunks would take the plain version past
+    PLAIN_LAUNCHES slice assignments (the depth segment: 78,497 specs)."""
+    c = spec_counts(seg)
+    specs = c["A"] + c["B"] + c["C"] + c["D"]
+    chunks = -(-seg.Wpad // (1 << 20))
+    return 1 << 20 if chunks * specs <= PLAIN_LAUNCHES else seg.Wpad
+
+
 def _check(seg, kind, device, raw: bool, chunk_words: int) -> tuple[int, int, str]:
     """Both kernels against their plain versions on one segment and kind.
     Fused: the four scalars without and with need_bits, and the need_bits
@@ -271,7 +301,8 @@ def phase_kernel_vs_plain(device="cuda", segments=CHECK_SEGMENTS,
             with env_set(env):
                 seg = _segment(packing, lo, hi, limit, 4 if gapname == "cousins" else 2)
             cases.append((f"{packing:7s} [{lo}, {hi}) {gapname:7s}", seg,
-                          _kind(packing, gapname), gapname == KINDS[0], 1 << 20))
+                          _kind(packing, gapname), gapname == KINDS[0],
+                          _chunk_words(seg)))
     for n, nrounds, which in rounds:
         seg = _round_segment(n, nrounds, which)
         cases.append((f"n={n:.0e} --rounds {nrounds} {which} round, twins", seg,
@@ -556,10 +587,12 @@ def _host_ms(fn) -> tuple[float, object]:
 
 
 def _time_shapes() -> list[tuple[str, object]]:
-    """The timed shapes: the n=1e9 odds segment of the counting run, and
-    the n=1e11 middle round of the streaming run (the main path's own)."""
+    """The timed shapes: the n=1e9 odds segment of the counting run, the
+    n=1e11 middle round of the streaming run (the main path's own), and
+    the depth segment below 10^12 (every seed below 10^6 live)."""
     return [("n=1e9 odds segment", _segment("odds", 2, 10**9 + 1, None, 2)),
-            ("n=1e11 middle round", _round_segment(10**11, 64, "middle"))]
+            ("n=1e11 middle round", _round_segment(10**11, 64, "middle")),
+            ("depth segment", _segment("odds", DEPTH_LO, DEPTH_HI, None, 2))]
 
 
 def phase_times(dev: dict, reps: int = 20) -> dict:
@@ -821,7 +854,12 @@ def _call_words(ts, kind, device, marked=None):
         ts.rcp2, ts.act2, ts.corr_idx, ts.corr_mask, ts.pair_mask, device=device)
 
 
-def _words_vs_cuda(device="cuda", segments=CHECK_SEGMENTS) -> int:
+# the word kernel's check segments: all but the depth segment, where the
+# torch ops would take about half a minute a kind (phase kernel holds it)
+WORD_CHECK_SEGMENTS = [s for s in CHECK_SEGMENTS if s[1] != DEPTH_LO]
+
+
+def _words_vs_cuda(device="cuda", segments=WORD_CHECK_SEGMENTS) -> int:
     """(a) On every check segment whose words fit the word kernel, for each
     kind: the torch backend equal to the cuda backend field for field; for
     the segments up to n=1e8 also mark_words on the card equal to the same
@@ -1025,7 +1063,7 @@ def _words_times(dev: dict) -> dict:
 
 
 def phase_words(dev: dict | None, numpy_runs: dict, device="cuda",
-                sizes=None, segments=CHECK_SEGMENTS) -> dict:
+                sizes=None, segments=WORD_CHECK_SEGMENTS) -> dict:
     """The torch backend's word path on the card, (a)-(f); see the
     helpers. With ``dev`` None the times are not taken (a CPU rehearsal)."""
     sizes = sizes or {"mid": 10**9, "small": 10**8, "batch_base": 10**9}
@@ -2329,6 +2367,236 @@ def phase_fabric(device="cuda", sizes=None) -> dict:
     return out
 
 
+# --- the measurement plane ----------------------------------------------------
+
+# the four profiled runs (n and its segments or rounds), then the tools'
+# segments and runs, and the depth segment's bounds
+PROFILE_SIZES = {"big": 10**10, "big_segments": 5, "stream": 10**11,
+                 "stream_rounds": 64, "split": 10**10, "split_rounds": 8,
+                 "words": 10**8, "kernel_span": 10**9, "rounds_n": 10**11,
+                 "rounds": 64, "words_n": 10**8, "depth_lo": DEPTH_LO,
+                 "depth_hi": DEPTH_HI}
+# kernel names in the profiler's trace (demangled, template arguments and
+# parameter lists after them)
+KERNEL_NAMES = {"fused": re.compile(r"\bfused_mark_kernel\b"),
+                "combine": re.compile(r"\bcombine_kernel\b"),
+                "split": re.compile(r"\bsplit_mark_kernel\b")}
+TOOL_TIMES = {"fused": re.compile(r"--> fused kernel time: +([\d.]+) ms"),
+              "split": re.compile(r"--> split kernel time: +([\d.]+) ms"),
+              "postlude": re.compile(r"--> postlude time: +([\d.]+) ms")}
+SEG_TUPLE = re.compile(r"segment \(count, pairs, first, last\) = \((\d+), (\d+), "
+                       r"(\d+), (\d+)\)")
+
+
+def _profile_runs(sizes: dict) -> list[tuple]:
+    """(tag, CLI argv, env, fused launches, split launches, word calls,
+    pi, pairs) of the four profiled runs."""
+    s = sizes
+    return [
+        ("D1", ["--n", str(s["big"]), "--packing", "odds", "--twins", "--backend",
+                "cuda", "--segments", str(s["big_segments"])], {},
+         s["big_segments"], 0, 0, PI[s["big"]], TWINS[s["big"]]),
+        ("D2", ["--n", str(s["stream"]), "--packing", "odds", "--twins", "--backend",
+                "cuda", "--rounds", str(s["stream_rounds"])], {},
+         s["stream_rounds"], 0, 0, PI[s["stream"]], TWINS[s["stream"]]),
+        ("D3", ["--n", str(s["split"]), "--rounds", str(s["split_rounds"]),
+                "--backend", "cuda"], {"SIEVE_PALLAS_FUSED": "0"},
+         0, s["split_rounds"], 0, PI[s["split"]], None),
+        ("D4", ["--backend", "torch", "--n", str(s["words"]), "--twins"], {},
+         0, 0, 1, PI[s["words"]], TWINS_BELOW[s["words"]]),
+    ]
+
+
+def _kernel_events(d: Path) -> tuple[dict, dict, int]:
+    """The one Chrome trace torch.profiler wrote into ``d``: its kernel
+    events counted and their durations summed (us) by KERNEL_NAMES, and
+    the number of all kernel events."""
+    files = sorted(d.glob("*.pt.trace.json*"))
+    if len(files) != 1:
+        raise AssertionError(f"{d}: {len(files)} profiler traces, expected 1")
+    opener = gzip.open if files[0].suffix == ".gz" else open
+    with opener(files[0], "rt") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    counts = {k: 0 for k in KERNEL_NAMES}
+    dur = {k: 0.0 for k in KERNEL_NAMES}
+    for e in kernels:
+        for k, pat in KERNEL_NAMES.items():
+            if pat.search(e.get("name", "")):
+                counts[k] += 1
+                dur[k] += float(e.get("dur", 0.0))
+    return counts, dur, len(kernels)
+
+
+def _profiled_runs(device: str, sizes: dict, tmp: Path, times: dict | None) -> dict:
+    """(1) ``--profile-dir`` on the card: each run through the CLI with its
+    counts set to 0 just before and read just after, its result held
+    against the oracles, and its trace's kernel events against the
+    wrappers' launch counts."""
+    out = {}
+    on_card = device == "cuda"
+    for tag, argv, env, fused, split, words, pi, twins in _profile_runs(sizes):
+        d = tmp / tag
+        with env_set(env):
+            mark_fused.launches = mark_split.launches = 0
+            word_mark.mark_words.cuda_calls = 0
+            got, wall = run_cli(argv + ["--device", device, "--profile-dir", str(d)])
+            launched = {"fused": mark_fused.launches, "split": mark_split.launches,
+                        "words": word_mark.mark_words.cuda_calls}
+        want = {"fused": fused, "split": split, "words": words} if on_card else {
+            "fused": 0, "split": 0, "words": 0}
+        if launched != want:
+            raise AssertionError(f"{tag} {argv}: launches {launched}, expected {want}")
+        if got["pi"] != pi or (twins is not None and got["twin_pairs"] != twins):
+            raise AssertionError(f"{tag} {argv}: pi {got['pi']} pairs "
+                                 f"{got['twin_pairs']}; expected {pi}, {twins}")
+        counts, dur, n_kernels = _kernel_events(d)
+        want_events = {"fused": launched["fused"], "combine": launched["fused"],
+                       "split": launched["split"]}
+        if counts != want_events:
+            raise AssertionError(f"{tag}: kernel events in the trace {counts}, "
+                                 f"expected {want_events} (the wrappers' counts)")
+        if on_card and words and n_kernels == 0:
+            raise AssertionError(f"{tag}: the trace holds no kernel of the word path")
+        mean = {k: dur[k] / counts[k] / 1e3 for k in dur if counts[k]}
+        out[tag] = {"argv": " ".join(argv), "wall_s": wall, "elapsed_s": got["elapsed_s"],
+                    "launches": launched, "kernel_events": counts,
+                    "kernel_events_all": n_kernels,
+                    "kernel_ms_sum": {k: v / 1e3 for k, v in dur.items()},
+                    "kernel_ms_mean": mean}
+        line = (f"{tag}: sieve_torch {' '.join(argv)} --profile-dir: pi {got['pi']} "
+                f"pairs {got['twin_pairs']} | run {got['elapsed_s']:.4f} s (wall "
+                f"{wall:.4f} s) | launches {launched} | trace: {n_kernels} kernel "
+                f"events, {counts}, summed ms "
+                f"{ {k: round(v / 1e3, 4) for k, v in dur.items()} }")
+        log("profile", line + (f" (env {env})" if env else ""))
+    if times is not None:
+        # the same kernel on the same shape: the profiler's mean against the
+        # CUDA-event median of phase times
+        ev = times["n=1e11 middle round"]["counting"]["ms"]
+        prof = out["D2"]["kernel_ms_mean"]["fused"]
+        out["D2"]["cuda_event_ms"] = ev
+        out["D2"]["profiler_over_events"] = prof / ev
+        log("profile", f"D2 fused kernel: profiler mean {prof:.4f} ms a launch "
+                       f"(+ combine {out['D2']['kernel_ms_mean']['combine']:.4f} ms) "
+                       f"against {ev:.4f} ms by CUDA events on the n=1e11 middle "
+                       f"round (phase times): {prof / ev:.3f}x")
+    return out
+
+
+def _run_tool(name: str, argv: list[str]) -> tuple[str, float]:
+    """``python -m sieve_torch.tools.<name> <argv>`` in this process: its
+    stdout and seconds; a tool that does not exit 0 fails the phase."""
+    import importlib
+
+    mod = importlib.import_module(f"sieve_torch.tools.{name}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    sec = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"{name} {' '.join(argv)} exited {rc}:\n{buf.getvalue()}")
+    return buf.getvalue(), sec
+
+
+def _tools(device: str, sizes: dict, tmp: Path) -> dict:
+    """(2) every ported tool on the card, each exiting 0; profile_kernel
+    also as a ``python -m`` process. The counts the two microbench runs
+    print are held against pi (the odds segments from 2 leave out the
+    prime 2), and mesh_cold_smoke must print its OK line. Returns each
+    run's seconds and the times it printed, by its command line."""
+    dev = ["--device", device]
+    span = str(sizes["kernel_span"])
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sieve_torch.tools.profile_kernel",
+                           span, *dev], capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"python -m sieve_torch.tools.profile_kernel exited "
+                           f"{proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+    texts = {f"profile_kernel {span} (process)": (proc.stdout, time.perf_counter() - t0)}
+    trace_out = tmp / "rounds.trace.json"
+    for name, argv in (
+            ("profile_kernel", [span, str(sizes["depth_lo"])] + dev),
+            ("profile_rtt", [span] + dev),
+            ("profile_breakdown", [span] + dev),
+            ("profile_rounds", [str(sizes["rounds_n"]), str(sizes["rounds"]),
+                                "--twins", "--trace-out", str(trace_out)] + dev),
+            ("trace_report", [str(trace_out)]),
+            ("profile_prepare", []),
+            ("microbench", [str(sizes["words_n"])] + dev),
+            ("microbench", [span, "--cuda"] + dev),
+            ("mesh_cold_smoke", dev)):
+        texts[" ".join([name, *argv]).replace(str(trace_out), trace_out.name)] = \
+            _run_tool(name, argv)
+    out = {}
+    for key, (text, sec) in texts.items():
+        out[key] = {"seconds": sec}
+        for k, pat in TOOL_TIMES.items():
+            m = pat.search(text)
+            if m:
+                out[key][f"{k}_ms"] = float(m.group(1))
+        log("profile", f"tool {key}: exit 0 in {sec:.2f} s")
+        for line in text.rstrip().splitlines():
+            log("profile", "    " + line)
+    for key, n in ((f"microbench {sizes['words_n']} --device {device}", sizes["words_n"]),
+                   (f"microbench {span} --cuda --device {device}", sizes["kernel_span"])):
+        count = int(SEG_TUPLE.search(texts[key][0]).group(1))
+        if count + 1 != PI[n]:
+            raise AssertionError(f"{key}: count {count} + 1 != pi({n}) = {PI[n]}")
+    if "MESH_COLD_SMOKE_OK" not in texts[f"mesh_cold_smoke --device {device}"][0]:
+        raise AssertionError("mesh_cold_smoke did not print MESH_COLD_SMOKE_OK")
+    return out
+
+
+def _depth_oracle(device: str, sizes: dict) -> dict:
+    """(3) the fused kernel's count on the depth segment against
+    pi(hi - 1) - pi(lo - 1): the published pi(10^12) and Lucy's pi on the
+    host for the lower end (phase kernel holds both kernels against their
+    plain versions there)."""
+    lo, hi = sizes["depth_lo"], sizes["depth_hi"]
+    t0 = time.perf_counter()
+    lower = _prime_pi(lo - 1)
+    lucy_s = time.perf_counter() - t0
+    upper = PI_1E12 if hi - 1 == 10**12 else _prime_pi(hi - 1)
+    seg = _segment("odds", lo, hi, None, 2)
+    count = mark_fused(seg, pairs.TWIN_NONE, device=device)[0]
+    count += get_layout("odds").extras_in(lo, hi)
+    want = upper - lower
+    log("profile", f"depth segment [{lo}, {hi}): fused kernel count {count}, "
+                   f"oracle pi({hi - 1}) - pi({lo - 1}) = {upper} - {lower} = {want} "
+                   f"(Lucy's pi on the host in {lucy_s:.2f} s)")
+    if count != want:
+        raise AssertionError(f"depth segment: count {count} != oracle {want}")
+    return {"count": count, "oracle": want, "lucy_s": lucy_s}
+
+
+def phase_profile(device="cuda", sizes=None, times: dict | None = None,
+                  stream_unprofiled_s: float | None = None) -> dict:
+    """The measurement plane: (1) four ``--profile-dir`` runs, their traces'
+    kernel events equal to the wrappers' launches; (2) every ported tool;
+    (3) the depth segment against an independent oracle."""
+    sizes = sizes or PROFILE_SIZES
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="sieve_profile_") as tmp:
+        runs = _profiled_runs(device, sizes, Path(tmp), times)
+        if stream_unprofiled_s is not None:
+            d2 = runs["D2"]
+            log("profile", f"D2 under the profiler {d2['elapsed_s']:.4f} s, without "
+                           f"it {stream_unprofiled_s:.4f} s (phase rounds); not a "
+                           "result: the profiler's own cost")
+            d2["unprofiled_s"] = stream_unprofiled_s
+        mark_fused.launches = mark_split.launches = 0
+        tools = _tools(device, sizes, Path(tmp))
+        tool_launches = {"fused": mark_fused.launches, "split": mark_split.launches}
+    depth = _depth_oracle(device, sizes)
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in ("fused", "split", "words")}
+    return {"runs": runs, "launches": launches, "tools": tools,
+            "tool_launches": tool_launches, "depth": depth,
+            "seconds": time.perf_counter() - t0}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, action="append", default=[],
@@ -2365,7 +2633,8 @@ def main(argv=None) -> int:
     log("launches", f"rounds path: mark_fused {rounds['launches']['fused']}, "
                     f"mark_split {rounds['launches']['split']} launches, one per "
                     "device segment of each mode")
-    times = timed("times", phase_times, dev)["n=1e9 odds segment"]
+    all_times = timed("times", phase_times, dev)
+    times = all_times["n=1e9 odds segment"]
     timed("groups", phase_groups, dev, others)
     words = timed("words", phase_words, dev, numpy_runs)
     log("words", f"torch backend == cuda backend on {words['checked']} (segment, "
@@ -2387,6 +2656,12 @@ def main(argv=None) -> int:
     log("launches", f"fabric: mark_fused {fabric['launches']} (the two ledgers' "
                     "counting runs and shard 1's cold chunks, in process and in "
                     "the serve process)")
+    profile = timed("profile", phase_profile, times=all_times,
+                    stream_unprofiled_s=rounds["stream"]["elapsed_s"])
+    log("launches", f"profile: mark_fused {profile['launches']['fused']}, mark_split "
+                    f"{profile['launches']['split']} in the four --profile-dir runs "
+                    f"(the tools launched {profile['tool_launches']} more in this "
+                    "process, measurement launches)")
     log("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s: "
                 + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
     wt = words["times"]
@@ -2406,6 +2681,7 @@ def main(argv=None) -> int:
     print("[service] " + json.dumps(service))
     print("[serve] " + json.dumps(serve))
     print("[fabric] " + json.dumps(fabric))
+    print("[profile] " + json.dumps(profile))
     kernels = [{
         "name": "fused_mark",
         "route": "cuda",
@@ -2413,7 +2689,8 @@ def main(argv=None) -> int:
         "replaces": "sieve/kernels/pallas_mark.py:694",
         "launches": (launches + rounds["launches"]["fused"] + cluster["launches"]
                      + multihost["launches"] + service["launches"]
-                     + serve["launches"] + fabric["launches"]),
+                     + serve["launches"] + fabric["launches"]
+                     + profile["launches"]["fused"]),
         "max_abs_err": worst,
         "ms": times["counting"]["ms"],
         "plain_ms": times["counting"]["plain_ms"],
@@ -2425,7 +2702,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "sieve_torch/kernels/csrc/fused_mark.cu",
         "replaces": "sieve/kernels/pallas_mark.py:609",
-        "launches": rounds["launches"]["split"],
+        "launches": rounds["launches"]["split"] + profile["launches"]["split"],
         "max_abs_err": worst_split,
         "ms": times["split"]["ms"],
         "plain_ms": times["split"]["plain_ms"],

@@ -21,6 +21,7 @@ from pathlib import Path
 
 import numpy as np
 
+from sieve_torch import trace
 from sieve_torch.bitset import get_layout
 from sieve_torch.kernels.specs import _pair_mask, marking_specs
 from sieve_torch.worker import SegmentResult, SieveWorker
@@ -110,7 +111,8 @@ class CpuNativeWorker(SieveWorker):
         t0 = time.perf_counter()
         packing = self.config.packing
         layout = get_layout(packing)
-        specs = marking_specs(packing, lo, hi, seed_primes)
+        with trace.span("segment.prepare", backend=self.name, seg=seg_id):
+            specs = marking_specs(packing, lo, hi, seed_primes)
         nbits = specs.nbits
         nwords = max(1, -(-nbits // 64))
         words = np.empty(nwords, dtype=np.uint64)
@@ -119,14 +121,15 @@ class CpuNativeWorker(SieveWorker):
 
         lib = self._lib
         words_p = words.ctypes.data_as(ctypes.c_void_p)
-        lib.sieve_init(words_p, nwords, nbits)
-        lib.mark_multiples(
-            words_p,
-            nbits,
-            m.ctypes.data_as(ctypes.c_void_p),
-            s.ctypes.data_as(ctypes.c_void_p),
-            len(m),
-        )
+        with trace.span("segment.mark", backend=self.name, seg=seg_id):
+            lib.sieve_init(words_p, nwords, nbits)
+            lib.mark_multiples(
+                words_p,
+                nbits,
+                m.ctypes.data_as(ctypes.c_void_p),
+                s.ctypes.data_as(ctypes.c_void_p),
+                len(m),
+            )
         count = int(lib.popcount_words(words_p, nwords)) + layout.extras_in(lo, hi)
         twin = 0
         if self.config.twins and nbits:

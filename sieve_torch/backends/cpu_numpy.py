@@ -10,6 +10,7 @@ import time
 
 import numpy as np
 
+from sieve_torch import trace
 from sieve_torch.bitset import boundary_words, get_layout
 from sieve_torch.worker import SegmentResult, SieveWorker
 
@@ -40,14 +41,15 @@ class CpuNumpyWorker(SieveWorker):
         self, lo: int, hi: int, seed_primes: np.ndarray, seg_id: int = 0
     ) -> SegmentResult:
         t0 = time.perf_counter()
-        layout = get_layout(self.config.packing)
-        flags = sieve_segment_flags(self.config.packing, lo, hi, seed_primes)
-        count = int(np.count_nonzero(flags)) + layout.extras_in(lo, hi)
-        gap = self.config.pair_gap or 2
-        twin_count = (
-            layout.pairs_internal(flags, lo, hi, gap) if self.config.twins else 0
-        )
-        first_word, last_word = boundary_words(flags)
+        with trace.span("segment.mark", backend=self.name, seg=seg_id):
+            layout = get_layout(self.config.packing)
+            flags = sieve_segment_flags(self.config.packing, lo, hi, seed_primes)
+            count = int(np.count_nonzero(flags)) + layout.extras_in(lo, hi)
+            gap = self.config.pair_gap or 2
+            twin_count = (
+                layout.pairs_internal(flags, lo, hi, gap) if self.config.twins else 0
+            )
+            first_word, last_word = boundary_words(flags)
         return SegmentResult(
             seg_id=seg_id,
             lo=lo,

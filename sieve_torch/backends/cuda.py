@@ -17,6 +17,7 @@ import time
 import numpy as np
 import torch
 
+from sieve_torch import trace
 from sieve_torch.backends.cpu_numpy import CpuNumpyWorker
 from sieve_torch.bitset import get_layout
 from sieve_torch.kernels.cuda_mark import (
@@ -89,13 +90,15 @@ class CudaWorker(SieveWorker):
         if nbits < MIN_DEVICE_BITS:
             self.host_segments += 1
             return self._cpu_fallback.process_segment(lo, hi, seed_primes, seg_id)
-        seg = self._prepare(lo, hi, seed_primes)
+        with trace.span("segment.prepare", backend=self.name, seg=seg_id):
+            seg = self._prepare(lo, hi, seed_primes)
         self.reduction_mode = "fused" if fused_enabled() else "split"
         key = "postlude_" + self.reduction_mode
         t1 = time.perf_counter()
-        count, pairs, first_word, last_word = mark_cuda(
-            seg, pair_kind(self.config), device=self.device
-        )
+        with trace.span("segment.device", backend=self.name, seg=seg_id, mode=key):
+            count, pairs, first_word, last_word = mark_cuda(
+                seg, pair_kind(self.config), device=self.device
+            )
         self.reduce_seconds[key] = (
             self.reduce_seconds.get(key, 0.0) + time.perf_counter() - t1
         )

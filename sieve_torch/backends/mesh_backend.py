@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sieve_torch import env
+from sieve_torch import env, trace
 from sieve_torch.backends.torch_words import TorchWorker, stack_tables
 from sieve_torch.kernels.pairs import pair_kind
 from sieve_torch.kernels.specs import TieredSegment
@@ -71,10 +71,12 @@ class MeshWorker(TorchWorker):
         rows = rows + [rows[0]] * (ndev * per - b)
         tables = stack_tables(rows, periods, c_pad)
         kind = pair_kind(self.config)
-        outs = [
-            mark_words_batch(Wpad, kind, periods,
-                             *_rows(tables, d * per, (d + 1) * per), device=dev)
-            for d, dev in enumerate(self.shards)
-        ]
-        self.launches += 1
-        return torch.cat([o.cpu() for o in outs]).numpy()[:b]
+        with trace.span("segment.device", backend=self.name, batch=b,
+                        padded=len(rows), devices=ndev):
+            outs = [
+                mark_words_batch(Wpad, kind, periods,
+                                 *_rows(tables, d * per, (d + 1) * per), device=dev)
+                for d, dev in enumerate(self.shards)
+            ]
+            self.launches += 1
+            return torch.cat([o.cpu() for o in outs]).numpy()[:b]

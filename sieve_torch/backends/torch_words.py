@@ -19,6 +19,7 @@ import time
 
 import numpy as np
 
+from sieve_torch import trace
 from sieve_torch.backends.cpu_numpy import CpuNumpyWorker
 from sieve_torch.backends.cuda import resolve_device
 from sieve_torch.bitset import get_layout
@@ -115,21 +116,24 @@ class TorchWorker(SieveWorker):
         nbits = get_layout(packing).nbits(lo, hi)
         if nbits < MIN_DEVICE_BITS:
             return self._cpu_fallback.process_segment(lo, hi, seed_primes, seg_id)
-        ts = self._prepare(packing, lo, hi, seed_primes)
-        packed = mark_words(
-            ts.Wpad, pair_kind(self.config), ts.periods, nbits, ts.patterns,
-            ts.m2, ts.r2, ts.K2, ts.rcp2, ts.act2, ts.corr_idx, ts.corr_mask,
-            ts.pair_mask, device=self.device,
-        ).cpu()  # one int64[4] fetch: count, pairs, first32, last32
+        with trace.span("segment.prepare", backend=self.name, seg=seg_id):
+            ts = self._prepare(packing, lo, hi, seed_primes)
+        with trace.span("segment.device", backend=self.name, seg=seg_id):
+            packed = mark_words(
+                ts.Wpad, pair_kind(self.config), ts.periods, nbits, ts.patterns,
+                ts.m2, ts.r2, ts.K2, ts.rcp2, ts.act2, ts.corr_idx, ts.corr_mask,
+                ts.pair_mask, device=self.device,
+            ).cpu()  # one int64[4] fetch: count, pairs, first32, last32
         return self._result(seg_id, lo, hi, nbits, packed.tolist(), t0)
 
     def _run_group(self, Wpad: int, periods: tuple, c_pad: int,
                    rows: list[TieredSegment]) -> np.ndarray:
         """One shape group's rows through one batched call: [B, 4]."""
-        return mark_words_batch(
-            Wpad, pair_kind(self.config), periods,
-            *stack_tables(rows, periods, c_pad), device=self.device,
-        ).cpu().numpy()
+        with trace.span("segment.device", backend=self.name, batch=len(rows)):
+            return mark_words_batch(
+                Wpad, pair_kind(self.config), periods,
+                *stack_tables(rows, periods, c_pad), device=self.device,
+            ).cpu().numpy()
 
     def process_segments(
         self,
@@ -160,7 +164,9 @@ class TorchWorker(SieveWorker):
                     lo, hi, seed_primes, seg_ids[pos]
                 )
                 continue
-            ts = self._prepare(packing, lo, hi, seed_primes)
+            with trace.span("segment.prepare", backend=self.name,
+                            seg=seg_ids[pos]):
+                ts = self._prepare(packing, lo, hi, seed_primes)
             c_pad = max(1, next_pow2(ts.corr_idx.size))
             key = (ts.Wpad, ts.periods, ts.m2.size, c_pad)
             groups.setdefault(key, []).append((pos, ts, t0))

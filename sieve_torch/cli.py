@@ -5,6 +5,7 @@ Examples:
     python -m sieve_torch --n 1e11 --rounds 64 --twins
     python -m sieve_torch --n 1e10 --rounds 8 --checkpoint-dir ck [--resume]
     python -m sieve_torch --n 1e9 --backend torch --rounds 4 --twins
+    python -m sieve_torch --n 1e10 --twins --segments 5 --profile-dir prof
     SIEVE_CLUSTER_WORKER_BACKEND=cuda \
         python -m sieve_torch --n 1e10 --twins --backend cpu-cluster --workers 2
     python -m sieve_torch --n 1e10 --twins --workers 2 --rounds 8 --multihost \
@@ -28,7 +29,9 @@ unless ``--device cpu`` is given, which runs the cuda kernels' plain
 PyTorch versions, or the torch backend's ops, on the CPU.
 ``--emit-primes LO:HI`` prints the primes of a window instead (``--n`` is
 then not needed); like the reference it marks on the host with numpy.
-SIEVE_PALLAS_FUSED=0 selects the split kernel and its postlude. The flags
+SIEVE_PALLAS_FUSED=0 selects the split kernel and its postlude.
+``--profile-dir DIR`` runs a cuda or torch run under torch.profiler and
+writes its Chrome trace into DIR (the card's kernels included). The flags
 and output lines are the reference CLI's; the reference's ``--jax-*``
 spellings of the ``--dist-*`` flags are accepted too.
 
@@ -51,6 +54,7 @@ reference's.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import threading
@@ -118,6 +122,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true")
     p.add_argument("--rounds", type=int, default=1,
                    help="dispatch rounds (failure-recovery granularity)")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the run (host ops "
+                        "and, on a card, its kernels) into this directory "
+                        "as Chrome trace JSON (cuda and torch backends)")
     p.add_argument("--trace", default=None, dest="trace_file", metavar="FILE",
                    help="write host-side spans as Chrome trace-event JSON "
                         "(Perfetto, chrome://tracing); on cpu-cluster the "
@@ -165,6 +173,7 @@ def config_from_args(args: argparse.Namespace) -> SieveConfig:
         json_output=args.json_output,
         device=args.device,
         multihost=args.multihost,
+        profile_dir=args.profile_dir,
         trace_file=args.trace_file,
         metrics_file=args.metrics_file,
         chaos=args.chaos,
@@ -189,6 +198,33 @@ def _join_group(args: argparse.Namespace, config: SieveConfig) -> None:
                shard_devices(config.device, nlocal))
 
 
+def _profiler(config: SieveConfig):
+    """``--profile-dir`` on the device backends: a torch.profiler session
+    around the dispatch, host ops always and the card's kernels when the
+    run's device is a CUDA device, written by tensorboard_trace_handler
+    (one ``<host>_<pid>.<ms>.pt.trace.json`` per process, so ranks do not
+    collide). Other backends ignore the flag, as the reference's do. A
+    profiler that cannot trace the card raises instead of tracing the
+    host alone."""
+    if not config.profile_dir or config.backend not in ("cuda", "torch"):
+        return contextlib.nullcontext()
+    import torch
+    from torch.profiler import (ProfilerActivity, profile,
+                                supported_activities, tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(config.device).type == "cuda":
+        from sieve_torch.backends.cuda import resolve_device
+
+        resolve_device(config.device)  # no card: say so before profiling
+        if ProfilerActivity.CUDA not in supported_activities():
+            raise RuntimeError("--profile-dir: torch.profiler cannot trace "
+                               "CUDA activity in this build (no CUPTI)")
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(config.profile_dir))
+
+
 def _run(args: argparse.Namespace, config: SieveConfig) -> int:
     from sieve_torch import metrics, trace
 
@@ -201,7 +237,8 @@ def _run(args: argparse.Namespace, config: SieveConfig) -> int:
     try:
         if config.multihost:
             _join_group(args, config)
-        return _dispatch(args, config)
+        with _profiler(config):
+            return _dispatch(args, config)
     finally:
         if config.multihost:
             import torch.distributed as dist

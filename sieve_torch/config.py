@@ -59,9 +59,12 @@ class SieveConfig:
     # Multi-process rounds over torch.distributed: the CLI joins the
     # process group before the run; workers is then the GLOBAL shard count.
     multihost: bool = False
-    # Observability: ``trace_file`` writes a Chrome trace-event JSON of
-    # host spans (sieve_torch/trace.py); ``metrics_file`` appends every
-    # metrics event as JSONL whatever --quiet says. Out of config_hash.
+    # Observability: ``profile_dir`` receives a torch.profiler trace of the
+    # run (cuda and torch backends); ``trace_file`` writes a Chrome
+    # trace-event JSON of host spans (sieve_torch/trace.py);
+    # ``metrics_file`` appends every metrics event as JSONL whatever
+    # --quiet says. All out of config_hash.
+    profile_dir: str | None = None
     trace_file: str | None = None
     metrics_file: str | None = None
     # Fault injection: ``chaos`` is the composable schedule (see
@@ -138,9 +141,9 @@ class SieveConfig:
 
     @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "SieveConfig":
-        """The config of a dict, keeping only this class's fields: a dict of
-        the reference's config (a mixed cluster) carries fields the port
-        lacks, such as ``profile_dir``, and they are dropped."""
+        """The config of a dict, keeping only this class's fields: a dict
+        from another version of the config (a mixed cluster) may carry
+        fields this one lacks, and they are dropped."""
         fields = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in fields})
 

@@ -15,9 +15,8 @@ strings — so this module imports nothing of the reference:
     ``torch``; its checkpoint dir and ``resume`` carry over, and a ledger
     written by either package resumes under the other (same file format,
     same config hash), as do ``cpu-cluster`` and its coordinator address,
-    the chaos schedule, ``multihost``, ``trace_file`` and ``metrics_file``.
-    Only ``profile_dir`` is refused: ``torch.profiler`` comes with the
-    tools slice.
+    the chaos schedule, ``multihost``, ``profile_dir`` (a torch.profiler
+    trace in the port), ``trace_file`` and ``metrics_file``.
 """
 
 from __future__ import annotations
@@ -34,8 +33,6 @@ from sieve_torch.kernels.specs import TieredSegment
 # reference backend -> port backend
 BACKEND_MAP = {"tpu-pallas": "cuda", "jax": "torch", "cpu-numpy": "cpu-numpy",
                "cpu-native": "cpu-native", "cpu-cluster": "cpu-cluster"}
-# reference-only fields -> the slice that brings them (rejected when set)
-FIELD_SLICES = {"profile_dir": "tools (torch.profiler tracing)"}
 
 
 def _fields_from(cls, d: dict[str, Any]):
@@ -73,12 +70,6 @@ def config_from_reference(d: dict[str, Any], device: str = "cuda") -> SieveConfi
         raise NotImplementedError(
             f"sieve_torch: backend {backend!r} has no counterpart in the port"
         )
-    for name, slice_name in FIELD_SLICES.items():
-        if d.get(name) is not None:
-            raise NotImplementedError(
-                f"sieve_torch: {name!r} is not ported yet; it comes with "
-                f"the {slice_name} slice"
-            )
     fields = {f.name for f in dataclasses.fields(SieveConfig)}
     kw = {k: v for k, v in d.items() if k in fields}
     kw["backend"] = BACKEND_MAP[backend]

@@ -20,10 +20,9 @@ so a couple of threads hide prep behind the device. The thread count is
 from __future__ import annotations
 
 import threading
-import time
 from typing import Any, Callable, Sequence
 
-from sieve_torch import env
+from sieve_torch import env, trace
 from sieve_torch.analysis.lockdebug import named_condition
 
 
@@ -98,19 +97,20 @@ class PrepPipeline:
                 if resident > self.stats["peak_resident"]:
                     self.stats["peak_resident"] = resident
                 rnd = self.rounds[i]
-            t0 = time.perf_counter()
             try:
-                prep = self._prep(state, rnd)
+                # producer-thread span: lands on its own track in a
+                # --trace file, making prep/device overlap visible
+                with trace.span("prep.round", round=rnd) as sp:
+                    prep = self._prep(state, rnd)
             except BaseException as e:  # propagate to the consumer
                 with self._cond:
                     self._error = e
                     self._cond.notify_all()
                 return
-            elapsed = time.perf_counter() - t0
             with self._cond:
                 self._ready[rnd] = prep
                 self.stats["rounds_prepared"] += 1
-                self.stats["prep_seconds"] += elapsed
+                self.stats["prep_seconds"] += sp.elapsed
                 self._cond.notify_all()
 
     def take(self, rnd: int) -> Any:

@@ -15,6 +15,11 @@
     runs ``route --help`` and ``observe --help``, and has loaded neither
     ``torch`` nor ``jax`` nor ``sieve``: a router or observer process pays
     no torch start and opens no CUDA context;
+  - the measurement tools (``sieve_torch/tools/``) import nothing of the
+    repository's ``tools`` either: a fresh interpreter runs
+    ``python -m sieve_torch.tools.trace_report FILE`` and loads none of
+    ``torch``, ``jax``, ``sieve`` or ``tools``, and another runs
+    ``profile_prepare`` and loads neither ``jax`` nor ``sieve``;
   - no command the package starts runs ``-m sieve``: a spawned process is
     ``-m sieve_torch``;
   - asking for the card where there is none raises a clear error instead
@@ -36,7 +41,9 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "sieve_torch"
-FORBIDDEN = ("jax", "jaxlib", "sieve")
+# the repository's ``tools`` are the reference's scripts: the port keeps
+# its own copies in sieve_torch/tools
+FORBIDDEN = ("jax", "jaxlib", "sieve", "tools")
 OK_LINE = '"ok": true'
 
 
@@ -116,7 +123,11 @@ def test_run_loads_no_jax_and_no_sieve():
             "sieve_torch.enumerate", "sieve_torch.debug", "sieve_torch.profile",
             "sieve_torch.service.server", "sieve_torch.service.client",
             "sieve_torch.service.shards", "sieve_torch.service.router",
-            "sieve_torch.service.observe",
+            "sieve_torch.service.observe", "sieve_torch.tools",
+            "sieve_torch.tools.trace_report", "sieve_torch.tools.profile_prepare",
+            "sieve_torch.tools.profile_kernel", "sieve_torch.tools.profile_rtt",
+            "sieve_torch.tools.profile_breakdown", "sieve_torch.tools.profile_rounds",
+            "sieve_torch.tools.microbench", "sieve_torch.tools.mesh_cold_smoke",
             } <= set(got["modules"])
     loaded = [m for m in got["after"] if _forbidden(m)]
     assert not loaded, f"the port loaded {loaded}"
@@ -276,6 +287,51 @@ def test_fabric_loads_no_torch_no_jax_no_sieve():
     loaded = [m for m in got["after"] if m == "torch" or m.startswith("torch.")
               or _forbidden(m)]
     assert not loaded, f"the fabric loaded {loaded}"
+
+
+# runs one tool module as ``python -m`` would, then reports the modules it
+# loaded; argv[1] is the module, argv[2:] its arguments
+_TOOL_PROBE = """
+import contextlib, io, json, runpy, sys
+mod = sys.argv[1]
+sys.argv = [mod] + sys.argv[2:]
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    try:
+        runpy.run_module(mod, run_name="__main__")
+    except SystemExit as e:
+        rc = e.code
+print(json.dumps({"rc": rc, "out": out.getvalue(), "after": sorted(sys.modules)}))
+"""
+
+
+def _tool_probe(*argv):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _TOOL_PROBE, *argv], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_trace_report_loads_no_torch_no_jax_no_sieve_no_tools(tmp_path):
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps({"traceEvents": [
+        {"name": "round.dispatch", "ph": "X", "ts": 0.0, "dur": 5.0, "args": {}}]}))
+    got = _tool_probe("sieve_torch.tools.trace_report", str(path))
+    assert got["rc"] == 0
+    assert "per-phase breakdown" in got["out"]
+    assert "sieve_torch.tools" in got["after"]  # the module ran as __main__
+    loaded = [m for m in got["after"] if m == "torch" or m.startswith("torch.")
+              or _forbidden(m)]
+    assert not loaded, f"trace_report loaded {loaded}"
+
+
+def test_profile_prepare_loads_no_jax_and_no_sieve():
+    got = _tool_probe("sieve_torch.tools.profile_prepare", "1e5", "1")
+    assert got["rc"] == 0
+    assert "CudaChain steady-state prepare" in got["out"]
+    loaded = [m for m in got["after"] if _forbidden(m)]
+    assert not loaded, f"profile_prepare loaded {loaded}"
 
 
 def test_cuda_device_without_card_raises(monkeypatch, capsys):
