@@ -46,6 +46,14 @@ sieve_torch/tools on the card (profile_kernel also as a ``python -m``
 process, the depth regime among them), each exiting 0; and the depth
 segment [10^12 - 10^9, 10^12 + 1), which phase ``kernel`` holds bit for
 bit against the plain versions, against pi(10^12) - pi(10^12 - 10^9 - 1).
+Phase ``gates`` runs the concurrency and discipline gates on the card:
+``sieve_torch.tools.check_all --device cuda`` in this process (the static
+analyzer, the env-var and event-schema checks, and the wire check, whose
+live ledger is sieved with one fused launch per segment), then the
+service, chaos and store smokes as ``python -m`` processes under
+SIEVE_LOCK_DEBUG=1, each exiting 0 with its banner and observed lock
+orders consistent with the canonical order; the service smoke's cold
+plane and the chaos smoke's cluster workers launch the fused kernel.
 Each ``--other DIR`` names a checkout of another commit
 (the parent, unpacked with ``git archive``) or a variant of these
 sources, whose kernels are built too and timed in turns with these in
@@ -57,10 +65,11 @@ line:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
-The words, cluster, multihost, service, serve, fabric and profile phases
-print their summaries as ``[words] {...}``, ``[cluster] {...}``,
+The words, cluster, multihost, service, serve, fabric, profile and gates
+phases print their summaries as ``[words] {...}``, ``[cluster] {...}``,
 ``[multihost] {...}``, ``[service] {...}``, ``[serve] {...}``,
-``[fabric] {...}`` and ``[profile] {...}`` lines before those three. Exits non-zero when torch sees no CUDA device, and when run
+``[fabric] {...}``, ``[profile] {...}`` and ``[gates] {...}`` lines before
+those three. Exits non-zero when torch sees no CUDA device, and when run
 outside a checkout of the repository.
 """
 
@@ -2597,6 +2606,101 @@ def phase_profile(device="cuda", sizes=None, times: dict | None = None,
             "seconds": time.perf_counter() - t0}
 
 
+GATE_SMOKES = {"service_smoke": "SERVICE_SMOKE_OK", "chaos_smoke": "CHAOS_SMOKE_OK",
+               "store_smoke": "STORE_SMOKE_OK"}
+GATE_CHECKS = ("wire_ops", "event_schema", "concurrency", "env_vars")
+WIRE_SEGMENTS = 2  # check_wire_ops' live ledger: n=2,000 in 2 segments
+LOCK_OK = re.compile(r"^lock debug OK: (\d+) observed acquisition orders", re.M)
+LOCK_PAIRS = re.compile(r"^lock debug pairs: (.*)$", re.M)
+SMOKE_LAUNCHES = re.compile(r"^device: .*; fused launches [^:]*: (\d+)$", re.M)
+
+
+def _gate_checks(device: str) -> dict:
+    """(1) ``check_all --device <device>`` in this process: exit 0, one
+    ``ok`` line per check, and the wire check's live ledger sieved with one
+    fused launch per segment on the card (its 13 probes and the batch are
+    byte-identical under v1 and v2, or the check fails)."""
+    from sieve_torch.tools import check_all
+
+    buf = io.StringIO()
+    mark_fused.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = check_all.main(["--device", device])
+    sec = time.perf_counter() - t0
+    launches = mark_fused.launches
+    text = buf.getvalue()
+    for line in text.rstrip().splitlines():
+        log("gates", "    " + line)
+    ok = [c for c in GATE_CHECKS if f"check_all: {c}: ok" in text.splitlines()]
+    if rc != 0 or len(ok) != len(GATE_CHECKS):
+        raise AssertionError(f"check_all --device {device} exited {rc}; ok: {ok}")
+    want = WIRE_SEGMENTS if device == "cuda" else 0
+    if launches != want:
+        raise AssertionError(f"check_all: {launches} fused launches for the wire "
+                             f"check's {WIRE_SEGMENTS} ledger segments (want {want})")
+    log("gates", f"check_all --device {device}: exit 0, {len(ok)} checks ok, "
+                 f"{launches} fused launches, {sec:.2f} s")
+    return {"seconds": sec, "checks_ok": len(ok), "launches": launches}
+
+
+def _gate_smoke(name: str, device: str) -> dict:
+    """(2) ``python -m sieve_torch.tools.<name> --device <device>`` under
+    SIEVE_LOCK_DEBUG=1 (read once at import, so a process of its own):
+    exit 0 and its banner, K > 0 observed lock orders consistent with the
+    canonical order, and the fused launches it printed."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"sieve_torch.tools.{name}",
+                           "--device", device],
+                          env={**os.environ, "SIEVE_LOCK_DEBUG": "1"},
+                          cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True, timeout=600)
+    sec = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if not ln.startswith("{")]
+    for line in lines:
+        log("gates", f"    {name}: {line}")
+    if proc.returncode != 0 or GATE_SMOKES[name] not in lines:
+        raise RuntimeError(f"{name} --device {device} exited {proc.returncode}:\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    k = LOCK_OK.search(proc.stdout)
+    pairs = LOCK_PAIRS.search(proc.stdout)
+    launches = SMOKE_LAUNCHES.search(proc.stdout)
+    if not (k and pairs and launches) or int(k.group(1)) < 1:
+        raise AssertionError(f"{name}: no observed lock orders or launch line")
+    out = {"seconds": sec, "orders": int(k.group(1)),
+           "pairs": json.loads(pairs.group(1)), "launches": int(launches.group(1))}
+    log("gates", f"{name}: exit 0 in {sec:.2f} s, {out['orders']} observed lock "
+                 f"orders consistent with the canonical order, {out['launches']} "
+                 "fused launches")
+    return out
+
+
+def phase_gates(device="cuda") -> dict:
+    """The concurrency and discipline gates on the card: ``check_all`` in
+    process (the wire check's live ledger on the fused kernel), then the
+    service, chaos and store smokes as processes under SIEVE_LOCK_DEBUG=1:
+    the service smoke's cold plane and the chaos smoke's cluster workers
+    launch the fused kernel, the service smoke's observed orders include
+    ``build._lock`` taken under ``ColdBackend._lock``, and the store
+    smoke's ``serve --procs 3`` puts three CUDA contexts on the card."""
+    t0 = time.perf_counter()
+    out = {"check_all": _gate_checks(device)}
+    for name in GATE_SMOKES:
+        out[name] = _gate_smoke(name, device)
+    if device == "cuda":
+        for name in ("service_smoke", "chaos_smoke"):
+            if out[name]["launches"] < 1:
+                raise AssertionError(f"{name}: no fused launch on the card")
+        inner = {b for _, b in out["service_smoke"]["pairs"]}
+        if "build._lock" not in inner:
+            raise AssertionError("service_smoke: no observed order takes build._lock "
+                                 f"inside another lock ({sorted(inner)})")
+    out["launches"] = out["check_all"]["launches"] + sum(
+        out[name]["launches"] for name in GATE_SMOKES)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, action="append", default=[],
@@ -2662,6 +2766,12 @@ def main(argv=None) -> int:
                     f"{profile['launches']['split']} in the four --profile-dir runs "
                     f"(the tools launched {profile['tool_launches']} more in this "
                     "process, measurement launches)")
+    gates = timed("gates", phase_gates)
+    log("launches", f"gates: mark_fused {gates['launches']} (the wire check's "
+                    f"ledger {gates['check_all']['launches']}, the service smoke "
+                    f"{gates['service_smoke']['launches']}, the chaos smoke's workers "
+                    f"{gates['chaos_smoke']['launches']}, the store smoke "
+                    f"{gates['store_smoke']['launches']})")
     log("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s: "
                 + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
     wt = words["times"]
@@ -2682,6 +2792,7 @@ def main(argv=None) -> int:
     print("[serve] " + json.dumps(serve))
     print("[fabric] " + json.dumps(fabric))
     print("[profile] " + json.dumps(profile))
+    print("[gates] " + json.dumps(gates))
     kernels = [{
         "name": "fused_mark",
         "route": "cuda",
@@ -2690,7 +2801,7 @@ def main(argv=None) -> int:
         "launches": (launches + rounds["launches"]["fused"] + cluster["launches"]
                      + multihost["launches"] + service["launches"]
                      + serve["launches"] + fabric["launches"]
-                     + profile["launches"]["fused"]),
+                     + profile["launches"]["fused"] + gates["launches"]),
         "max_abs_err": worst,
         "ms": times["counting"]["ms"],
         "plain_ms": times["counting"]["plain_ms"],

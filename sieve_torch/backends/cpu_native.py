@@ -15,13 +15,13 @@ import fcntl
 import hashlib
 import os
 import subprocess
-import threading
 import time
 from pathlib import Path
 
 import numpy as np
 
 from sieve_torch import trace
+from sieve_torch.analysis.lockdebug import named_lock
 from sieve_torch.bitset import get_layout
 from sieve_torch.kernels.specs import _pair_mask, marking_specs
 from sieve_torch.worker import SegmentResult, SieveWorker
@@ -31,7 +31,7 @@ SOURCE = _PKG / "csrc" / "mark_multiples.cc"
 BUILD_DIR = _PKG / "_build"
 FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-Wall", "-Wextra")
 
-_lock = threading.Lock()
+_lock = named_lock("cpu_native._lock")
 _LIB: ctypes.CDLL | None = None
 
 

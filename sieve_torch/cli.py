@@ -599,6 +599,7 @@ def _serve_supervisor(argv: list[str], args, procs: int) -> int:
         base.append(a)
 
     children: list[subprocess.Popen] = []
+    forwarders: list[threading.Thread] = []
     serving: list[threading.Event] = []
     first_line: list[dict | None] = [None] * procs
 
@@ -615,7 +616,10 @@ def _serve_supervisor(argv: list[str], args, procs: int) -> int:
                     first_line[i] = doc
                     serving[i].set()
                     continue
-            print(line, flush=True)
+            # one write per line: print() writes the text and its newline
+            # apart, and the forwarders of several children interleave
+            sys.stdout.write(line + "\n")
+            sys.stdout.flush()
 
     try:
         for i in range(procs):
@@ -625,8 +629,10 @@ def _serve_supervisor(argv: list[str], args, procs: int) -> int:
             p = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True)
             children.append(p)
             serving.append(threading.Event())
-            threading.Thread(target=_forward, args=(i, children[i]),
-                             daemon=True, name=f"serve-fwd-{i}").start()
+            forwarders.append(threading.Thread(
+                target=_forward, args=(i, children[i]), daemon=True,
+                name=f"serve-fwd-{i}"))
+            forwarders[-1].start()
         for i, ev in enumerate(serving):
             while not ev.wait(0.2):
                 if children[i].poll() is not None:
@@ -663,6 +669,11 @@ def _serve_supervisor(argv: list[str], args, procs: int) -> int:
                 break
             stop.wait(0.2)
         rcs = [p.wait() for p in children]
+        # every child's last lines (its own "drained") are still in its
+        # pipe: forward them before this process's line, or they are lost
+        # when it exits under its daemon forwarders
+        for t in forwarders:
+            t.join(10)
         print(json.dumps({"event": "drained", "supervisor": True,
                           "clean": all(rc == 0 for rc in rcs),
                           "rcs": rcs}), flush=True)

@@ -16,9 +16,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 import time
 from pathlib import Path
+
+from sieve_torch.analysis.lockdebug import named_lock
 
 PKG = Path(__file__).resolve().parent.parent
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_mark.cu"
@@ -48,7 +49,7 @@ SPLIT_ARGTYPES = _GROUPS + [
     _I, _P,                     # device, stream
 ]
 
-_lock = threading.Lock()
+_lock = named_lock("build._lock")
 _lib: ctypes.CDLL | None = None
 
 

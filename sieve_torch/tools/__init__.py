@@ -15,7 +15,17 @@ can call it in process:
 * ``microbench``: steady-state ``mark_words`` (or ``--cuda``: the fused
   kernel) on one segment;
 * ``mesh_cold_smoke``: the cold plane's ``MeshWorker`` against the numpy
-  worker and a direct oracle, then its throughput against the loop.
+  worker and a direct oracle, then its throughput against the loop;
+* the static gates over ``sieve_torch/`` (stdlib only, no torch):
+  ``check_concurrency`` (the analyzer of :mod:`sieve_torch.analysis`
+  against ``concurrency_baseline.json``), ``check_env_vars``,
+  ``check_event_schema``, ``check_wire_ops`` (its live leg sieves a ledger
+  on ``--device``) and ``check_all``, which runs the four;
+* the smokes, the gates' runtime half: ``service_smoke`` (the server
+  under composed chaos), ``chaos_smoke`` (the cluster under composed
+  faults, then a torn-ledger resume) and ``store_smoke`` (demotion, a
+  ``serve --procs 3`` warm restart, per-process drain); under
+  ``SIEVE_LOCK_DEBUG=1`` each checks its observed lock orders.
 
 The tools that touch a device take ``--device`` (default ``cuda``) and
 raise when it names a card that is not there (``resolve_device``). On a CUDA device they time
@@ -74,3 +84,63 @@ def sync(dev) -> None:
         import torch
 
         torch.cuda.synchronize(dev)
+
+
+class SmokeFailure(Exception):
+    """A smoke's parity, liveness or accounting violation: its ``main``
+    prints it as a ``FAIL:`` line and returns 1."""
+
+
+def fail(msg: str) -> None:
+    raise SmokeFailure(msg)
+
+
+def expect(desc: str, got, want) -> None:
+    if got != want:
+        fail(f"{desc}: got {got!r}, want {want!r}")
+
+
+def assert_lock_orders() -> None:
+    """The dynamic half of the concurrency gate, for the smokes: under
+    ``SIEVE_LOCK_DEBUG=1`` the acquisition orders this process observed
+    must agree with the canonical order (sieve_torch/analysis/model.py),
+    or the smoke fails. Prints the observed pairs as one JSON list, then
+    ``lock debug OK: K observed acquisition orders ...``. Does nothing
+    with the flag off."""
+    import json
+
+    from sieve_torch import env
+    from sieve_torch.analysis import lockdebug
+
+    if not env.env_flag("SIEVE_LOCK_DEBUG"):
+        return
+    problems = lockdebug.check_static_consistency()
+    if problems:
+        fail("lock sanitizer: observed orders disagree with the static "
+             "graph:\n  " + "\n  ".join(problems))
+    pairs = lockdebug.observed_pairs()
+    print("lock debug pairs: " + json.dumps(sorted(list(p) for p in pairs)),
+          flush=True)
+    print(f"lock debug OK: {len(pairs)} observed acquisition orders "
+          "consistent with the static graph", flush=True)
+
+
+def smoke_device(name: str):
+    """The device a smoke runs on (``--device``; a CUDA device must exist)
+    and the SieveConfig backend that sieves there: ``cuda`` (the fused
+    kernel) on a card, the reference's ``cpu-numpy`` on the CPU."""
+    from sieve_torch.backends.cuda import resolve_device
+
+    dev = resolve_device(name)
+    return dev, ("cuda" if dev.type == "cuda" else "cpu-numpy")
+
+
+def launches_line(dev, launches: int, what: str = "in this process") -> str:
+    """The line each smoke prints before its banner: the device it ran on
+    and the fused kernel's launches it caused."""
+    label = str(dev)
+    if dev.type == "cuda":
+        import torch
+
+        label += f" ({torch.cuda.get_device_name(dev)})"
+    return f"device: {label}; fused launches {what}: {launches}"

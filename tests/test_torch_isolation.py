@@ -20,6 +20,12 @@
     ``python -m sieve_torch.tools.trace_report FILE`` and loads none of
     ``torch``, ``jax``, ``sieve`` or ``tools``, and another runs
     ``profile_prepare`` and loads neither ``jax`` nor ``sieve``;
+  - the static gates ``check_concurrency``, ``check_env_vars`` and
+    ``check_event_schema``, each run as ``python -m`` in a fresh
+    interpreter, exit 0 and load none of ``torch``, ``jax``, ``sieve`` or
+    ``tools``; the service, chaos and store smokes, each run in a fresh
+    interpreter with ``--device cpu``, pass and load neither ``jax`` nor
+    ``sieve``;
   - no command the package starts runs ``-m sieve``: a spawned process is
     ``-m sieve_torch``;
   - asking for the card where there is none raises a clear error instead
@@ -128,6 +134,11 @@ def test_run_loads_no_jax_and_no_sieve():
             "sieve_torch.tools.profile_kernel", "sieve_torch.tools.profile_rtt",
             "sieve_torch.tools.profile_breakdown", "sieve_torch.tools.profile_rounds",
             "sieve_torch.tools.microbench", "sieve_torch.tools.mesh_cold_smoke",
+            "sieve_torch.analysis.core", "sieve_torch.analysis.checks",
+            "sieve_torch.tools.check_concurrency", "sieve_torch.tools.check_env_vars",
+            "sieve_torch.tools.check_event_schema", "sieve_torch.tools.check_wire_ops",
+            "sieve_torch.tools.check_all", "sieve_torch.tools.service_smoke",
+            "sieve_torch.tools.chaos_smoke", "sieve_torch.tools.store_smoke",
             } <= set(got["modules"])
     loaded = [m for m in got["after"] if _forbidden(m)]
     assert not loaded, f"the port loaded {loaded}"
@@ -305,10 +316,11 @@ print(json.dumps({"rc": rc, "out": out.getvalue(), "after": sorted(sys.modules)}
 """
 
 
-def _tool_probe(*argv):
+def _tool_probe(*argv, timeout=120, **extra_env):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _TOOL_PROBE, *argv], cwd=REPO,
-                          env=env, capture_output=True, text=True, timeout=120)
+                          env={**env, **extra_env}, capture_output=True, text=True,
+                          timeout=timeout)
     assert proc.returncode == 0, proc.stderr
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
@@ -332,6 +344,33 @@ def test_profile_prepare_loads_no_jax_and_no_sieve():
     assert "CudaChain steady-state prepare" in got["out"]
     loaded = [m for m in got["after"] if _forbidden(m)]
     assert not loaded, f"profile_prepare loaded {loaded}"
+
+
+@pytest.mark.parametrize("tool, ok", [
+    ("check_concurrency", "check_concurrency: ok (0 new findings, 0 waived)"),
+    ("check_env_vars", "check_env_vars: ok ("),
+    ("check_event_schema", "check_event_schema: ok ("),
+])
+def test_static_gates_load_no_torch_no_jax_no_sieve_no_tools(tool, ok):
+    got = _tool_probe(f"sieve_torch.tools.{tool}")
+    assert got["rc"] == 0
+    assert got["out"].startswith(ok)
+    if tool == "check_concurrency":
+        assert "sieve_torch.analysis.core" in got["after"]
+    loaded = [m for m in got["after"] if m == "torch" or m.startswith("torch.")
+              or _forbidden(m)]
+    assert not loaded, f"{tool} loaded {loaded}"
+
+
+@pytest.mark.parametrize("smoke", ["service_smoke", "chaos_smoke", "store_smoke"])
+def test_smokes_load_no_jax_and_no_sieve(smoke, tmp_path):
+    got = _tool_probe(f"sieve_torch.tools.{smoke}", "--device", "cpu",
+                      "--keep", str(tmp_path / "work"), timeout=300,
+                      OMP_NUM_THREADS="1")
+    assert got["rc"] == 0
+    assert got["out"].splitlines()[-1] == f"{smoke.upper()}_OK"
+    loaded = [m for m in got["after"] if _forbidden(m)]
+    assert not loaded, f"{smoke} loaded {loaded}"
 
 
 def test_cuda_device_without_card_raises(monkeypatch, capsys):

@@ -47,9 +47,20 @@ def debug_on(monkeypatch):
         mod.recorder().reset()
 
 
+# the port's kernel-library locks, which the reference has no counterpart
+# of: each is taken on every launch, under ColdBackend._lock on the cold plane
+PORT_ONLY_LOCKS = ("build._lock", "cpu_native._lock")
+
+
 def test_canonical_order_equals_the_reference():
-    assert CANONICAL_LOCK_ORDER == REF_ORDER
+    """The reference's order, with the port's own locks inserted below
+    ColdBackend._lock."""
+    shared = tuple(n for n in CANONICAL_LOCK_ORDER if n not in PORT_ONLY_LOCKS)
+    assert shared == REF_ORDER
     assert len(set(CANONICAL_LOCK_ORDER)) == len(CANONICAL_LOCK_ORDER)
+    for name in PORT_ONLY_LOCKS:
+        assert (CANONICAL_LOCK_ORDER.index("ColdBackend._lock")
+                < CANONICAL_LOCK_ORDER.index(name)), name
 
 
 def _named_in_port():
@@ -73,7 +84,8 @@ def test_every_named_lock_of_the_port_is_in_the_order():
                  "_Cluster.lock", "_Cluster.tele_lock", "PrepPipeline._cond",
                  "MetricsHistory._lock", "TieredSegmentStore._lock",
                  "BitsetLRU._lock", "SieveIndex._stat_lock", "FlightRecorder._lock",
-                 "StackProfiler._lock", "ExemplarSampler._io_cond"):
+                 "StackProfiler._lock", "ExemplarSampler._io_cond",
+                 *PORT_ONLY_LOCKS):
         assert want in found, want
 
 
