@@ -11,13 +11,13 @@ their entry points at full size, checks that every device segment went
 through the kernel of its mode, and times the kernels and the split
 postlude, whole and with one spec group live at a time. Phase ``words``
 does the same for the torch backend's word kernel (torch ops, not a hand
-kernel): against the cuda backend and its own CPU run, the n=1e9 counting
-run, the rounds path with a checkpoint and its resume, batched against
+kernel): against the cuda backend and, up to n=2.4e7, its own CPU run,
+the n=1e8 counting run, the rounds path with a checkpoint and its resume, batched against
 sequential calls (one device, then every card), and its times beside the
 fused kernel's. Phase ``cluster`` runs the cpu-cluster transport with two
 worker processes on the card (checkpointed, resumed, a worker killed)
 and on cpu-native workers; phase ``multihost`` runs ``--multihost`` ranks
-as processes of this script (``chip_smoke.py --rank <CLI arguments>``):
+as processes of this script (``chip_smoke.py --cli <CLI arguments>``):
 two gloo ranks sharing the card and their resume, and one NCCL rank.
 Phase ``service`` serves a ledger the card wrote through the port's data
 plane: the read-only ledger, the tiered store seeded from it, the
@@ -36,7 +36,9 @@ against exact oracles, and a cold window past the map on shard 1's fused
 kernel (shard 0 launches nothing); a failure drill (a replica stopped
 mid-burst, the whole shard down, a restart, an injected
 ``svc_shard_down``); a FleetObserver with scrape gaps; and ``serve`` x2,
-``route`` and ``observe`` as processes.
+``route`` and ``observe`` as processes, with the fleet tools (``fleet_top
+--json``, ``fleet_top --once``, ``fleet_debug``) run against the live
+router.
 Phase ``profile`` drives the measurement plane: four runs through the CLI
 with ``--profile-dir`` (n=1e10 in 5 segments, the n=1e11 ``--rounds 64``
 run, the split kernel under SIEVE_PALLAS_FUSED=0, the torch backend),
@@ -54,6 +56,16 @@ service, chaos and store smokes as ``python -m`` processes under
 SIEVE_LOCK_DEBUG=1, each exiting 0 with its banner and observed lock
 orders consistent with the canonical order; the service smoke's cold
 plane and the chaos smoke's cluster workers launch the fused kernel.
+Phase ``fleet`` runs the shard, observe, profile and failover smokes as
+``python -m`` processes with ``--device cuda`` (their ``serve`` children
+on ``--backend cuda``; each exits 0 with its banner and its fused
+launches, the children's read over the ``metrics`` op), then the
+autotuner's sweep of the fused kernel's knobs into a tuned file of its
+own and a fresh exact n=1e10 run that loads it, then ``python -m
+sieve_torch.graft_entry`` (the word kernel's entry and the one-shard dry
+run with its checks). The tuned run is a CLI process of this script
+(``chip_smoke.py --cli <CLI arguments>``), which reports its own kernel
+launches.
 Each ``--other DIR`` names a checkout of another commit
 (the parent, unpacked with ``git archive``) or a variant of these
 sources, whose kernels are built too and timed in turns with these in
@@ -65,11 +77,11 @@ line:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
-The words, cluster, multihost, service, serve, fabric, profile and gates
-phases print their summaries as ``[words] {...}``, ``[cluster] {...}``,
-``[multihost] {...}``, ``[service] {...}``, ``[serve] {...}``,
-``[fabric] {...}``, ``[profile] {...}`` and ``[gates] {...}`` lines before
-those three. Exits non-zero when torch sees no CUDA device, and when run
+The words, cluster, multihost, service, serve, fabric, profile, gates and
+fleet phases print their summaries as ``[words] {...}``, ``[cluster]
+{...}``, ``[multihost] {...}``, ``[service] {...}``, ``[serve] {...}``,
+``[fabric] {...}``, ``[profile] {...}``, ``[gates] {...}`` and ``[fleet]
+{...}`` lines before those three. Exits non-zero when torch sees no CUDA device, and when run
 outside a checkout of the repository.
 """
 
@@ -166,7 +178,7 @@ CHECK_SEGMENTS = [
 CHECK_ROUNDS = [(10**11, 64, "middle"), (10**10, 8, "last")]
 PI = {10**8: 5_761_455, 10**9: 50_847_534, 10**10: 455_052_511,
       10**11: 4_118_054_813}
-TWINS = {10**9: 3_424_506, 10**10: 27_412_679, 10**11: 224_376_048}
+TWINS = {10**8: 440_312, 10**9: 3_424_506, 10**10: 27_412_679, 10**11: 224_376_048}
 PACKINGS = ("plain", "odds", "wheel30")
 COUNT_KINDS = ("primes", "twins", "cousins")
 
@@ -863,17 +875,23 @@ def _call_words(ts, kind, device, marked=None):
         ts.rcp2, ts.act2, ts.corr_idx, ts.corr_mask, ts.pair_mask, device=device)
 
 
-# the word kernel's check segments: all but the depth segment, where the
-# torch ops would take about half a minute a kind (phase kernel holds it)
-WORD_CHECK_SEGMENTS = [s for s in CHECK_SEGMENTS if s[1] != DEPTH_LO]
+# the word kernel's check segments: those up to n=1e8 (the n=1e9-value
+# segment, ~20 s of torch ops for its three kinds, and the depth segment
+# stay with the hand kernels' phase, within the script's time limit)
+WORD_CHECK_SEGMENTS = [s for s in CHECK_SEGMENTS if s[2] - s[1] <= 10**8 + 1]
+# the segments whose word marking the CPU repeats: those up to n=2.4e7;
+# the three n=1e8 segments would take ~55 s of CPU torch ops, beyond the
+# script's time limit (on them the torch backend is still held against
+# the cuda one, which phase kernel holds against the plain versions)
+CPU_WORDS_MAX_HI = 24_000_001
 
 
 def _words_vs_cuda(device="cuda", segments=WORD_CHECK_SEGMENTS) -> int:
     """(a) On every check segment whose words fit the word kernel, for each
     kind: the torch backend equal to the cuda backend field for field; for
-    the segments up to n=1e8 also mark_words on the card equal to the same
-    function on the CPU (marked once, then each kind's tail). Returns the
-    number of (segment, kind) pairs held."""
+    the segments up to CPU_WORDS_MAX_HI also mark_words on the card equal
+    to the same function on the CPU (marked once, then each kind's tail).
+    Returns the number of (segment, kind) pairs held."""
     cases = 0
     for packing, lo, hi, limit, env in segments:
         nbits = get_layout(packing).nbits(lo, hi)
@@ -883,7 +901,7 @@ def _words_vs_cuda(device="cuda", segments=WORD_CHECK_SEGMENTS) -> int:
             continue
         seeds = seed_primes(limit if limit is not None else math.isqrt(hi - 1))
         cpu_words = None
-        if hi <= 10**8 + 1:
+        if hi <= CPU_WORDS_MAX_HI:
             ts = _tiered(packing, lo, hi, limit, 2)
             cpu_words = word_mark._marked_words(
                 ts.Wpad, ts.periods, tuple(p[None] for p in ts.patterns),
@@ -1075,19 +1093,30 @@ def phase_words(dev: dict | None, numpy_runs: dict, device="cuda",
                 sizes=None, segments=WORD_CHECK_SEGMENTS) -> dict:
     """The torch backend's word path on the card, (a)-(f); see the
     helpers. With ``dev`` None the times are not taken (a CPU rehearsal)."""
-    sizes = sizes or {"mid": 10**9, "small": 10**8, "batch_base": 10**9}
-    out = {"checked": _words_vs_cuda(device, segments)}
-    out["main_calls"] = _words_main(device, sizes, numpy_runs)
-    out["rounds_calls"] = _words_rounds(device, sizes)
-    out["batched_calls"] = _words_batched(device, sizes["batch_base"])
+    # the CLI runs at n=1e8, within the script's time limit; the n=1e9
+    # segment is still timed, and its pass bytes counted, in (f)
+    sizes = sizes or {"mid": 10**8, "small": 10**8, "batch_base": 10**9}
+    steps = {"checked": lambda: _words_vs_cuda(device, segments),
+             "main_calls": lambda: _words_main(device, sizes, numpy_runs),
+             "rounds_calls": lambda: _words_rounds(device, sizes),
+             "batched_calls": lambda: _words_batched(device, sizes["batch_base"])}
     if dev is not None:
-        out["times"] = _words_times(dev)
+        steps["times"] = lambda: _words_times(dev)
+    out, seconds = {}, {}
+    for name, step in steps.items():
+        t0 = time.perf_counter()
+        out[name] = step()
+        seconds[name] = time.perf_counter() - t0
+    log("words", "seconds per step: " + ", ".join(f"{k} {v:.1f}"
+                                                  for k, v in seconds.items()))
     return out
 
 # --- the distributed planes ---------------------------------------------------
 
-CLUSTER_SIZES = {"n": 10**10, "segments": 16, "workers": 2, "hb_segments": 8,
-                 "cpu_n": 10**9, "cpu_workers": 4}
+# the heartbeat run: 2 segments of 5e8 values, ~2 s each on a torch worker,
+# so heartbeats (1 s) must arrive while one runs
+CLUSTER_SIZES = {"n": 10**10, "segments": 16, "workers": 2, "hb_n": 10**9,
+                 "hb_segments": 2, "cpu_n": 10**9, "cpu_workers": 4}
 MULTIHOST_SIZES = {"n": 10**10, "rounds": 8, "nccl_n": 10**11, "nccl_rounds": 64}
 RANK_WAIT_S = 300
 
@@ -1215,7 +1244,8 @@ def phase_cluster(device="cuda", sizes=None) -> dict:
     # heartbeats while a segment runs on the card: word-kernel segments
     # of over a second, so the worker's main thread must send progress
     # while the segment's thread waits on the card
-    hb_argv = ["--n", str(n), "--twins", "--backend", "cpu-cluster", "--workers",
+    hb_n = sizes["hb_n"]
+    hb_argv = ["--n", str(hb_n), "--twins", "--backend", "cpu-cluster", "--workers",
                str(workers), "--segments", str(sizes["hb_segments"]), "--device",
                device, "--coordinator-addr", "127.0.0.1:0"]
     runs["heartbeat"] = _cluster_run(
@@ -1223,7 +1253,7 @@ def phase_cluster(device="cuda", sizes=None) -> dict:
         {"SIEVE_CLUSTER_WORKER_BACKEND": "torch"}, workers, on_card,
         counters=("kernel.mark_words.cuda_calls", "kernel.mark_words_batch.cuda_calls"))
     _check_oracles(hb_argv, runs["heartbeat"])
-    want_calls = _device_segments(n, "odds", sizes["hb_segments"]) if on_card else 0
+    want_calls = _device_segments(hb_n, "odds", sizes["hb_segments"]) if on_card else 0
     if runs["heartbeat"]["launches"] != want_calls:
         raise AssertionError(f"torch workers: {runs['heartbeat']['launches']} word-kernel "
                              f"calls for {want_calls} device segments")
@@ -1242,10 +1272,11 @@ def phase_cluster(device="cuda", sizes=None) -> dict:
     return out
 
 
-def rank_main(argv: list[str]) -> int:
-    """One ``--multihost`` rank (this script run as ``chip_smoke.py --rank
-    <CLI arguments>``): the CLI's main, then one JSON line with its exit
-    code, its output and this process's kernel launches."""
+def cli_main(argv: list[str]) -> int:
+    """One CLI run in a process of its own (this script run as
+    ``chip_smoke.py --cli <CLI arguments>``: a ``--multihost`` rank, or the
+    fleet phase's tuned run): the CLI's main, then one JSON line with its
+    exit code, its output and this process's kernel launches."""
     buf = io.StringIO()
     mark_fused.launches = mark_split.launches = 0
     with contextlib.redirect_stdout(buf):
@@ -1269,7 +1300,7 @@ def _ranks(argv: list[str], devices: list[str], tmp: Path, tag: str) -> list[dic
     try:
         for r, dev in enumerate(devices):
             procs.append(subprocess.Popen(
-                [sys.executable, str(Path(__file__).resolve()), "--rank", *argv,
+                [sys.executable, str(Path(__file__).resolve()), "--cli", *argv,
                  "--device", dev, "--json", "--quiet", "--multihost",
                  "--dist-coordinator", addr, "--dist-processes", str(len(devices)),
                  "--dist-process-id", str(r),
@@ -2228,10 +2259,55 @@ def _spawn(cmd: list[str], root: Path, tag: str, env: dict):
     return proc, first_line
 
 
+def _fleet_tools(router: str, replicas: list[str], root: Path, env: dict) -> dict:
+    """The fleet tools as processes against a live router: ``fleet_top
+    --json`` (exit 0, a row per replica, every one up), ``fleet_top --once``
+    (the table, a row per replica) and ``fleet_debug --out`` (exit 0, one
+    bundle from the router and both replicas)."""
+    def tool(name: str, *argv: str):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"sieve_torch.tools.{name}", router,
+                               *argv], cwd=Path(__file__).resolve().parent, env=env,
+                              capture_output=True, text=True, timeout=120)
+        return proc, time.perf_counter() - t0
+
+    out = {}
+    top, out["top_json_s"] = tool("fleet_top", "--json")
+    snap = json.loads(top.stdout) if top.returncode == 0 else {"shards": []}
+    rows = [r for sh in snap["shards"] for r in sh["replicas"]]
+    if top.returncode != 0 or sorted(r["addr"] for r in rows) != sorted(replicas) \
+            or any(r["health"] is None for r in rows):
+        raise AssertionError(f"fleet_top --json exited {top.returncode}: "
+                             f"{top.stdout[-2000:]}{top.stderr[-2000:]}")
+    once, out["top_once_s"] = tool("fleet_top", "--once")
+    if once.returncode != 0 or "contiguous" not in once.stdout \
+            or not all(a in once.stdout for a in replicas):
+        raise AssertionError(f"fleet_top --once exited {once.returncode}: "
+                             f"{once.stdout[-2000:]}{once.stderr[-2000:]}")
+    for line in once.stdout.splitlines():
+        log("fabric", "    fleet_top: " + line)
+    dbg, out["debug_s"] = tool("fleet_debug", "--out", str(root / "fleet_debug"))
+    path = root / "fleet_debug" / "fleet_bundle.json"
+    bundle = json.loads(path.read_text()) if path.exists() else {"replicas": []}
+    named = sorted(r["addr"] for r in bundle["replicas"] if r.get("bundle"))
+    if dbg.returncode != 0 or bundle.get("processes") != 3 \
+            or bundle["router"]["addr"] != router or named != sorted(replicas):
+        raise AssertionError(f"fleet_debug exited {dbg.returncode}: "
+                             f"{dbg.stdout[-2000:]}{dbg.stderr[-2000:]}")
+    out["debug_processes"] = bundle["processes"]
+    log("fabric", f"fleet tools against the live router: fleet_top --json exit 0, "
+                  f"{len(rows)} replica rows up ({out['top_json_s']:.2f} s) | "
+                  f"fleet_top --once exit 0 ({out['top_once_s']:.2f} s) | fleet_debug "
+                  f"exit 0, a bundle of the router and {len(named)} replicas "
+                  f"({out['debug_s']:.2f} s)")
+    return out
+
+
 def _fabric_cli(device: str, sizes: dict, root: Path, out: dict) -> None:
     """(4) ``serve`` x2, ``route`` and ``observe`` as processes over a
     ledger the card wrote: hot and cold queries through the router, the
-    observer's scrapes, a merged trace, and every process exits 0."""
+    observer's scrapes, the fleet tools against the live router, a merged
+    trace, and every process exits 0."""
     from sieve_torch.service import ServiceClient, ServiceSettings, read_ring
     from sieve_torch.service.observe import RING_FILE
 
@@ -2295,6 +2371,7 @@ def _fabric_cli(device: str, sizes: dict, root: Path, out: dict) -> None:
             if last.get("event") != "observed" or last["scrapes"] != 3 or len(rows) != 3 \
                     or last["gaps"] != 0:
                 raise AssertionError(f"observe: {last}, {len(rows)} ring rows")
+            out["fleet_tools"] = _fleet_tools(head["addr"], addrs, root, env)
             shard_stats, launched = [], []
             for a in addrs:
                 with ServiceClient(a, timeout_s=60) as s:
@@ -2644,31 +2721,39 @@ def _gate_checks(device: str) -> dict:
     return {"seconds": sec, "checks_ok": len(ok), "launches": launches}
 
 
-def _gate_smoke(name: str, device: str) -> dict:
-    """(2) ``python -m sieve_torch.tools.<name> --device <device>`` under
-    SIEVE_LOCK_DEBUG=1 (read once at import, so a process of its own):
-    exit 0 and its banner, K > 0 observed lock orders consistent with the
-    canonical order, and the fused launches it printed."""
+def _run_smoke(phase: str, name: str, banner: str, device: str, env: dict):
+    """``python -m sieve_torch.tools.<name> --device <device>`` as a process
+    of its own: exit 0 with ``banner``; returns its stdout, seconds and the
+    fused launches it printed."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", f"sieve_torch.tools.{name}",
-                           "--device", device],
-                          env={**os.environ, "SIEVE_LOCK_DEBUG": "1"},
+                           "--device", device], env=env,
                           cwd=Path(__file__).resolve().parent,
                           capture_output=True, text=True, timeout=600)
     sec = time.perf_counter() - t0
     lines = [ln for ln in proc.stdout.splitlines() if not ln.startswith("{")]
     for line in lines:
-        log("gates", f"    {name}: {line}")
-    if proc.returncode != 0 or GATE_SMOKES[name] not in lines:
+        log(phase, f"    {name}: {line}")
+    launches = SMOKE_LAUNCHES.search(proc.stdout)
+    if proc.returncode != 0 or banner not in lines or not launches:
         raise RuntimeError(f"{name} --device {device} exited {proc.returncode}:\n"
                            f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
-    k = LOCK_OK.search(proc.stdout)
-    pairs = LOCK_PAIRS.search(proc.stdout)
-    launches = SMOKE_LAUNCHES.search(proc.stdout)
-    if not (k and pairs and launches) or int(k.group(1)) < 1:
-        raise AssertionError(f"{name}: no observed lock orders or launch line")
+    return proc.stdout, sec, int(launches.group(1))
+
+
+def _gate_smoke(name: str, device: str) -> dict:
+    """(2) ``python -m sieve_torch.tools.<name> --device <device>`` under
+    SIEVE_LOCK_DEBUG=1 (read once at import, so a process of its own):
+    exit 0 and its banner, K > 0 observed lock orders consistent with the
+    canonical order, and the fused launches it printed."""
+    stdout, sec, launches = _run_smoke("gates", name, GATE_SMOKES[name], device,
+                                       {**os.environ, "SIEVE_LOCK_DEBUG": "1"})
+    k = LOCK_OK.search(stdout)
+    pairs = LOCK_PAIRS.search(stdout)
+    if not (k and pairs) or int(k.group(1)) < 1:
+        raise AssertionError(f"{name}: no observed lock orders")
     out = {"seconds": sec, "orders": int(k.group(1)),
-           "pairs": json.loads(pairs.group(1)), "launches": int(launches.group(1))}
+           "pairs": json.loads(pairs.group(1)), "launches": launches}
     log("gates", f"{name}: exit 0 in {sec:.2f} s, {out['orders']} observed lock "
                  f"orders consistent with the canonical order, {out['launches']} "
                  "fused launches")
@@ -2701,6 +2786,122 @@ def phase_gates(device="cuda") -> dict:
     return out
 
 
+FLEET_SMOKES = {"shard_smoke": "SHARD_SMOKE_OK", "observe_smoke": "OBSERVE_SMOKE_OK",
+                "profile_smoke": "PROFILE_SMOKE_OK", "failover_smoke": "FAILOVER_SMOKE_OK"}
+FLEET_SIZES = {"tune_span": 10**9, "n": 10**10, "segments": 5}
+DRYRUN_LINE = re.compile(r"^dryrun_multichip: (\{.*\})$", re.M)
+
+
+def _fleet_autotune(device: str, sizes: dict, tmp: Path) -> dict:
+    """(2) ``autotune_kernel`` with SIEVE_TUNED_JSON set to a file of its
+    own: every trial (a fresh interpreter, CUDA events around the warm
+    ``mark_fused``) gives the baseline's result, and the file holds the
+    chosen knobs; then a fresh ``python -m sieve_torch --n 1e10 --twins``
+    (in the counting run's 5 segments, a ``--cli`` process of this script)
+    loads that file, must be exact and must have launched the fused kernel
+    once per device segment."""
+    tuned = tmp / "tuned_cuda.json"
+    env = {**os.environ, "SIEVE_TUNED_JSON": str(tuned)}
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sieve_torch.tools.autotune_kernel",
+                           str(sizes["tune_span"]), "--device", device],
+                          env=env, cwd=root, capture_output=True, text=True, timeout=900)
+    sweep_s = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log("fleet", "    autotune_kernel: " + line)
+    if proc.returncode != 0 or not tuned.exists():
+        raise RuntimeError(f"autotune_kernel exited {proc.returncode}:\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    doc = json.loads(tuned.read_text())
+    meta = doc.pop("_meta")
+    rejected = [t for t in meta["trials"] if t["ms"] is None]
+    if rejected or "FAILED" in proc.stderr or len(meta["trials"]) != 6:
+        raise AssertionError(f"autotune_kernel: trials {meta['trials']}; "
+                             f"{proc.stderr[-2000:]}")
+    n = sizes["n"]
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--cli",
+                          "--n", str(n), "--twins", "--segments", str(sizes["segments"]),
+                          "--device", device, "--json", "--quiet"],
+                         env=env, cwd=root, capture_output=True, text=True, timeout=600)
+    run_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise RuntimeError(f"the tuned n={n} run exited {run.returncode}: "
+                           f"{run.stderr[-4000:]}")
+    child = json.loads(run.stdout.splitlines()[-1])
+    res = json.loads(child["out"].splitlines()[-1])
+    if (res["pi"], res["twin_pairs"]) != (PI[n], TWINS[n]):
+        raise AssertionError(f"tuned n={n}: pi, twins = {res['pi']}, "
+                             f"{res['twin_pairs']}; want {PI[n]}, {TWINS[n]}")
+    # the launches the child counted, against its segment plan
+    launches = child["fused"]
+    want = (_device_segments(n, res["packing"], res["n_segments"])
+            if device == "cuda" else 0)
+    if (launches, child["split"]) != (want, 0):
+        raise AssertionError(f"tuned n={n}: launches (fused, split) = "
+                             f"{(launches, child['split'])}, expected {(want, 0)}")
+    log("fleet", f"autotune_kernel --device {device} span {sizes['tune_span']:.0e}: "
+                 f"{len(meta['trials'])} trials in {sweep_s:.1f} s, chose {doc} "
+                 f"({meta['best_ms']} ms); a fresh --n {n:.0e} --twins with that file: "
+                 f"pi {res['pi']}, twins {res['twin_pairs']} exact in {run_s:.1f} s, "
+                 f"{launches} fused launches")
+    return {"seconds": sweep_s, "knobs": doc, "best_ms": meta["best_ms"],
+            "trials": meta["trials"], "device": meta["device"],
+            "run": {"seconds": run_s, "elapsed_s": res["elapsed_s"],
+                    "launches": launches}}
+
+
+def _fleet_graft(device: str) -> dict:
+    """(3) ``python -m sieve_torch.graft_entry``: the word kernel's entry on
+    the n=1e6 segment, then the dry run on one shard per card, which makes
+    the reference's checks itself."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sieve_torch.graft_entry",
+                           "--device", device], cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True, timeout=600)
+    sec = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log("fleet", "    graft_entry: " + line)
+    found = DRYRUN_LINE.findall(proc.stdout)
+    if proc.returncode != 0 or "dryrun_multichip ok" not in proc.stdout or not found:
+        raise RuntimeError(f"graft_entry exited {proc.returncode}:\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    summary = json.loads(found[-1])
+    if device == "cuda" and not (summary["launches"]["fused"] > 0
+                                 and summary["launches"]["split"] > 0):
+        raise AssertionError(f"graft_entry: launches {summary['launches']}")
+    return {"seconds": sec, **summary}
+
+
+def phase_fleet(device="cuda", sizes=None) -> dict:
+    """The fleet, the tuner and the graft entry on the card: (1) the
+    shard, observe, profile and failover smokes as ``python -m`` processes,
+    each exiting 0 with its banner, its ``serve`` children on ``--backend
+    cuda``; (2) the autotuner's sweep into a tuned file of its own, and an
+    exact n=1e10 run that loads it; (3) ``python -m
+    sieve_torch.graft_entry``."""
+    sizes = sizes or FLEET_SIZES
+    t0 = time.perf_counter()
+    out = {}
+    for name, banner in FLEET_SMOKES.items():
+        _stdout, sec, launches = _run_smoke("fleet", name, banner, device,
+                                            dict(os.environ))
+        if device == "cuda" and launches < 1:
+            raise AssertionError(f"{name}: no fused launch on the card")
+        out[name] = {"seconds": sec, "launches": launches}
+        log("fleet", f"{name}: exit 0 in {sec:.2f} s, {launches} fused launches")
+    with tempfile.TemporaryDirectory(prefix="sieve_fleet_") as tmp:
+        out["autotune"] = _fleet_autotune(device, sizes, Path(tmp))
+    out["graft_entry"] = _fleet_graft(device)
+    out["launches"] = (sum(out[name]["launches"] for name in FLEET_SMOKES)
+                       + out["autotune"]["run"]["launches"]
+                       + out["graft_entry"]["launches"]["fused"])
+    out["split_launches"] = out["graft_entry"]["launches"]["split"]
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, action="append", default=[],
@@ -2716,6 +2917,8 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         out = fn(*a, **k)
         spent[name] = time.perf_counter() - t0
+        log("time", f"phase {name}: {spent[name]:.1f} s (script "
+                    f"{time.perf_counter() - t_start:.1f} s)")
         return out
 
     timed("build", phase_build)
@@ -2772,6 +2975,13 @@ def main(argv=None) -> int:
                     f"{gates['service_smoke']['launches']}, the chaos smoke's workers "
                     f"{gates['chaos_smoke']['launches']}, the store smoke "
                     f"{gates['store_smoke']['launches']})")
+    fleet = timed("fleet", phase_fleet)
+    log("launches", f"fleet: mark_fused {fleet['launches']} (the smokes "
+                    + ", ".join(f"{k} {fleet[k]['launches']}" for k in FLEET_SMOKES)
+                    + f"; the tuned n=1e10 run {fleet['autotune']['run']['launches']}; "
+                    f"the graft dry run {fleet['graft_entry']['launches']['fused']}), "
+                    f"mark_split {fleet['split_launches']} (the graft dry run's parity "
+                    "run); the sweep's trials are measurement launches")
     log("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s: "
                 + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
     wt = words["times"]
@@ -2793,6 +3003,7 @@ def main(argv=None) -> int:
     print("[fabric] " + json.dumps(fabric))
     print("[profile] " + json.dumps(profile))
     print("[gates] " + json.dumps(gates))
+    print("[fleet] " + json.dumps(fleet))
     kernels = [{
         "name": "fused_mark",
         "route": "cuda",
@@ -2801,7 +3012,8 @@ def main(argv=None) -> int:
         "launches": (launches + rounds["launches"]["fused"] + cluster["launches"]
                      + multihost["launches"] + service["launches"]
                      + serve["launches"] + fabric["launches"]
-                     + profile["launches"]["fused"] + gates["launches"]),
+                     + profile["launches"]["fused"] + gates["launches"]
+                     + fleet["launches"]),
         "max_abs_err": worst,
         "ms": times["counting"]["ms"],
         "plain_ms": times["counting"]["plain_ms"],
@@ -2813,7 +3025,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "sieve_torch/kernels/csrc/fused_mark.cu",
         "replaces": "sieve/kernels/pallas_mark.py:609",
-        "launches": rounds["launches"]["split"] + profile["launches"]["split"],
+        "launches": (rounds["launches"]["split"] + profile["launches"]["split"]
+                     + fleet["split_launches"]),
         "max_abs_err": worst_split,
         "ms": times["split"]["ms"],
         "plain_ms": times["split"]["plain_ms"],
@@ -2830,6 +3043,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--rank"]:
-        sys.exit(rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--cli"]:
+        sys.exit(cli_main(sys.argv[2:]))
     sys.exit(main())

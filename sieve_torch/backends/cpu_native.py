@@ -5,7 +5,13 @@ the marking specs; the strided bit-clear, popcount and pair reduction run
 in sieve_torch/csrc/mark_multiples.cc over a packed uint64 buffer. The
 library is built with g++ at first use into sieve_torch/_build/, named by
 a hash of the source and flags, under a file lock so that concurrent
-first uses never load a half-written library.
+first uses never load a half-written library. With SIEVE_NATIVE_ASAN set
+(read at the first load) the process builds and loads the sanitizer
+variant instead, the reference's ``make asan`` target: ``-O1 -g
+-fsanitize=address,undefined``, under its own hashed name. A process that
+loads it must have the ASan runtime preloaded (``LD_PRELOAD`` of
+``g++ -print-file-name=libasan.so``), since python itself is not
+instrumented.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ from pathlib import Path
 
 import numpy as np
 
-from sieve_torch import trace
+from sieve_torch import env, trace
 from sieve_torch.analysis.lockdebug import named_lock
 from sieve_torch.bitset import get_layout
 from sieve_torch.kernels.specs import _pair_mask, marking_specs
@@ -30,15 +36,24 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "mark_multiples.cc"
 BUILD_DIR = _PKG / "_build"
 FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-Wall", "-Wextra")
+ASAN_FLAGS = ("-O1", "-g", "-fPIC", "-shared", "-fsanitize=address,undefined")
 
 _lock = named_lock("cpu_native._lock")
 _LIB: ctypes.CDLL | None = None
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
+def _asan() -> bool:
+    return bool(env.env_str("SIEVE_NATIVE_ASAN"))
+
+
+def library_path(asan: bool = False) -> Path:
+    """The library of this source and flag set (the sanitizer's with
+    ``asan``), named by their hash."""
+    flags = ASAN_FLAGS if asan else FLAGS
+    h = hashlib.sha256(" ".join(flags).encode())
     h.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"libmark-{h.hexdigest()[:16]}.so"
+    stem = "libmark_asan" if asan else "libmark"
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
 
 
 def _build_and_load() -> ctypes.CDLL:
@@ -46,7 +61,8 @@ def _build_and_load() -> ctypes.CDLL:
     with _lock:
         if _LIB is not None:
             return _LIB
-        so = library_path()
+        asan = _asan()
+        so = library_path(asan)
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             with open(BUILD_DIR / ".mark_build_lock", "w") as lock:
@@ -54,7 +70,8 @@ def _build_and_load() -> ctypes.CDLL:
                 if not so.exists():
                     tmp = so.with_suffix(f".{os.getpid()}.tmp")
                     proc = subprocess.run(
-                        ["g++", *FLAGS, "-o", str(tmp), str(SOURCE)],
+                        ["g++", *(ASAN_FLAGS if asan else FLAGS), "-o",
+                         str(tmp), str(SOURCE)],
                         capture_output=True, text=True,
                     )
                     if proc.returncode != 0:

@@ -103,6 +103,8 @@ def bind(path: str) -> ctypes.CDLL:
     lib.sieve_fused_mark.restype = ctypes.c_int
     lib.sieve_split_mark.argtypes = SPLIT_ARGTYPES
     lib.sieve_split_mark.restype = ctypes.c_int
+    lib.sieve_warm.argtypes = [ctypes.c_int]
+    lib.sieve_warm.restype = ctypes.c_int
     lib.sieve_cuda_error_string.argtypes = [ctypes.c_int]
     lib.sieve_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -428,6 +428,25 @@ int sieve_split_mark(
   return cudaGetLastError();
 }
 
+// Loads the kernels on `device` without launching them: with CUDA's lazy
+// module loading their first launch would otherwise load them. Returns
+// the CUDA error code.
+int sieve_warm(int device) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes attr;
+  const void* kernels[] = {
+      reinterpret_cast<const void*>(fused_mark_kernel<false>),
+      reinterpret_cast<const void*>(fused_mark_kernel<true>),
+      reinterpret_cast<const void*>(combine_kernel),
+      reinterpret_cast<const void*>(split_mark_kernel)};
+  for (const void* k : kernels) {
+    e = cudaFuncGetAttributes(&attr, k);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
 const char* sieve_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -36,12 +36,22 @@ Both kernels live in csrc/fused_mark.cu and share its marking phase.
 ``mark_cuda`` picks one per call, as the reference's ``mark_pallas`` does:
 fused unless SIEVE_PALLAS_FUSED=0. A failed build or launch raises;
 nothing falls back.
+
+The knobs SIEVE_PALLAS_DMIN, SIEVE_PALLAS_FLAT_MIN and SIEVE_PALLAS_FUSED
+each resolve as the reference's do: the env var, else the port's tuned
+file (written by ``python -m sieve_torch.tools.autotune_kernel``), else
+the built-in default. The tuned file is SIEVE_TUNED_JSON when that is
+set, else ``tuned_cuda.json`` at the repository's root; the TPU's
+``tuned.json`` is never read, and keys with no knob here (the TPU's
+SIEVE_PALLAS_ROWS) are ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -60,6 +70,35 @@ from sieve_torch.kernels.specs import (
 )
 from sieve_torch.metrics import registry
 
+TUNED_FILE = Path(__file__).resolve().parents[2] / "tuned_cuda.json"
+TUNED_KNOBS = ("SIEVE_PALLAS_DMIN", "SIEVE_PALLAS_FLAT_MIN", "SIEVE_PALLAS_FUSED")
+
+
+def _load_tuned() -> dict:
+    """The tuned file's knob values, read at import: SIEVE_TUNED_JSON,
+    else ``tuned_cuda.json`` at the repository's root. An absent or
+    unreadable file (the normal state) means the defaults; ``_meta`` and
+    keys with no knob here are dropped."""
+    path = env.env_str("SIEVE_TUNED_JSON") or TUNED_FILE
+    try:
+        with open(path) as f:
+            data = json.load(f)
+    except (OSError, ValueError):
+        return {}
+    return {k: v for k, v in data.items() if k in TUNED_KNOBS}
+
+
+_TUNED = _load_tuned()
+
+
+def _knob(name: str, default: int) -> int:
+    """An integer knob: the env var, else the tuned file, else default."""
+    v = env.env_int(name, None)
+    if v is None:
+        v = int(_TUNED.get(name, default))
+    return v
+
+
 R_ROWS = 128                    # tile = (R_ROWS, 128) words; the kernel is written for it
 TILE_WORDS = R_ROWS * 128
 NA_PAD = 16                     # group-A slots (>= 11 primes below 32)
@@ -67,7 +106,7 @@ B_MAX = 1024
 # Group-D threshold: strides wider than one tile row (128 words * 32 bits)
 # hit each row at most once. Only raising it is meaningful (prepare clamps
 # it to the 4096-bit row width); a huge value routes everything through C.
-D_MIN = env.env_int("SIEVE_PALLAS_DMIN", 4096)
+D_MIN = _knob("SIEVE_PALLAS_DMIN", 4096)
 D_LANES = 128                   # specs per group-D table row
 # Strides with at most this many crossings of the padded window leave the
 # kernel's stride groups for the host-enumerated flat list.
@@ -80,7 +119,7 @@ _U32 = 0xFFFFFFFF               # words ride as int64 holding uint32 values
 def _flat_cutoff(Wpad: int) -> int:
     """Smallest flat stride; SIEVE_PALLAS_FLAT_MIN (bits) overrides the
     auto cutoff, read per call so a sweep can move it."""
-    v = env.env_int("SIEVE_PALLAS_FLAT_MIN", 0)
+    v = _knob("SIEVE_PALLAS_FLAT_MIN", 0)
     if v <= 0:
         v = 32 * Wpad // _FLAT_MAX_HITS
     return max(v, max(D_MIN, 4096) + 1)
@@ -604,11 +643,32 @@ def mark_cuda_split(seg: CudaSegment, twin_kind: int, device="cuda"):
     return tuple(int(v) for v in split_reduce(x, twin_kind).cpu().tolist())
 
 
+def warm(devices) -> None:
+    """Load the kernel library and the kernels on each CUDA device of
+    ``devices`` without launching anything (a no-op for the CPU): the
+    one-time work of a process's first launch, done where it can overlap
+    host work. A failure raises."""
+    from sieve_torch.kernels import build
+
+    for dev in {torch.device(d) for d in devices}:
+        if dev.type != "cuda":
+            continue
+        lib = build.load()
+        err = lib.sieve_warm(dev.index if dev.index is not None else 0)
+        if err != 0:
+            raise RuntimeError(
+                f"loading the kernels failed: {lib.sieve_cuda_error_string(err).decode()}")
+
+
 def fused_enabled() -> bool:
     """Fused in-kernel reduction is the default; SIEVE_PALLAS_FUSED=0
-    selects the split kernel + postlude. Read per call, as the reference's
-    pallas_fused_enabled is (this card has no tuned.json)."""
-    return env.env_str("SIEVE_PALLAS_FUSED", "1") != "0"
+    selects the split kernel + postlude, from the env var or else the
+    tuned file. Read per call, as the reference's pallas_fused_enabled is,
+    so tests and dry runs can flip it."""
+    v = env.env_str("SIEVE_PALLAS_FUSED")
+    if v is None:
+        v = str(_TUNED.get("SIEVE_PALLAS_FUSED", "1"))
+    return v != "0"
 
 
 def mark_cuda(seg: CudaSegment, twin_kind: int, device="cuda"):

@@ -25,7 +25,19 @@ can call it in process:
   under composed chaos), ``chaos_smoke`` (the cluster under composed
   faults, then a torn-ledger resume) and ``store_smoke`` (demotion, a
   ``serve --procs 3`` warm restart, per-process drain); under
-  ``SIEVE_LOCK_DEBUG=1`` each checks its observed lock orders.
+  ``SIEVE_LOCK_DEBUG=1`` each checks its observed lock orders;
+* the fleet smokes, each over ``serve`` (and ``route``) processes:
+  ``failover_smoke`` (replicas under a live writer, a SIGKILL, refresh
+  corruption and a drain), ``shard_smoke`` (the router across the shard
+  edge, replica and shard loss, ``svc_shard_down``), ``observe_smoke``
+  (the observer's ring, one ``fleet_anomaly``, exemplars, the ``observe``
+  CLI and ``fleet_top``) and ``profile_smoke`` (merged flame captures and
+  their diff through ``fleet_profile``);
+* the fleet tools (host code, no torch): ``fleet_top`` (the live table,
+  ``--once``, ``--json``), ``fleet_debug`` (one merged postmortem bundle)
+  and ``fleet_profile`` (one merged flame capture, ``--diff``);
+* ``autotune_kernel``: the fused kernel's knobs by coordinate descent,
+  written to the port's tuned file (``tuned_cuda.json``).
 
 The tools that touch a device take ``--device`` (default ``cuda``) and
 raise when it names a card that is not there (``resolve_device``). On a CUDA device they time
@@ -36,7 +48,13 @@ import torch only when called.
 
 from __future__ import annotations
 
+import json
+import os
+import subprocess
+import threading
 import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def clock_name(dev) -> str:
@@ -144,3 +162,65 @@ def launches_line(dev, launches: int, what: str = "in this process") -> str:
 
         label += f" ({torch.cuda.get_device_name(dev)})"
     return f"device: {label}; fused launches {what}: {launches}"
+
+
+class Proc:
+    """One ``python -m sieve_torch serve``/``route`` process started from
+    the repository's root, its first stdout line (the JSON address line)
+    read, the rest collected in ``lines`` by a thread. With
+    ``announce=False`` the caller reads the address line later
+    (``announce()``), so that several processes start together: a
+    ``serve`` process takes seconds to import torch, or to reach the card,
+    and shards started one after another would each sample their
+    profilers for that much longer than the next."""
+
+    def __init__(self, args: list[str], env: dict, announce: bool = True):
+        self.args = args
+        self.proc = subprocess.Popen(
+            args, env=env, cwd=REPO, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+        )
+        if announce:
+            self.announce()
+
+    def announce(self) -> "Proc":
+        head = self.proc.stdout.readline()
+        try:
+            self.serving = json.loads(head)
+        except ValueError:
+            self.proc.kill()
+            raise RuntimeError(f"process did not announce itself: {head!r}")
+        self.addr = self.serving["addr"]
+        self.lines: list[str] = []
+        self._reader = threading.Thread(target=self._drain, daemon=True)
+        self._reader.start()
+        return self
+
+    def _drain(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.append(line)
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=10)
+
+
+def child_launches(addr: str, wait_s: float = 5.0) -> int:
+    """A ``serve`` process's fused launches so far: its registry's
+    ``kernel.mark_fused.launches``, read over the ``metrics`` op. Retried
+    for ``wait_s`` while the process drops connections (``replica_down``);
+    raises if it never answers."""
+    from sieve_torch.service import ServiceClient
+    from sieve_torch.service.client import CallTimeout
+
+    deadline = time.monotonic() + wait_s
+    while True:
+        try:
+            with ServiceClient(addr, timeout_s=2) as c:
+                got = c.metrics().get("kernel.mark_fused.launches") or {}
+            return int(got.get("value", 0))
+        except (CallTimeout, OSError):
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.1)

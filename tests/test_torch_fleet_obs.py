@@ -13,7 +13,9 @@ op answers on server and router; SLO burn and the telemetry-batch
 settings; the router's ``debug`` op and its ``router_shard_down`` bundle.
 Shard servers run the ``cuda`` backend on ``device="cpu"`` (the fused
 kernel's plain version). The reference's tests of ``tools/fleet_top.py``
-and ``tools/trace_report.py`` wait for the port's tools.
+and ``tools/fleet_debug.py`` run on the port's tools in
+tests/test_torch_fleet_tools.py, and those of ``tools/trace_report.py`` in
+tests/test_torch_trace_report.py.
 """
 
 import json

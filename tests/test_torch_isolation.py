@@ -25,7 +25,10 @@
     interpreter, exit 0 and load none of ``torch``, ``jax``, ``sieve`` or
     ``tools``; the service, chaos and store smokes, each run in a fresh
     interpreter with ``--device cpu``, pass and load neither ``jax`` nor
-    ``sieve``;
+    ``sieve`` (the failover, shard, observe and profile smokes' own check
+    is in tests/test_torch_fleet_smokes.py, which runs each of them once;
+    the fleet tools' in tests/test_torch_fleet_tools.py, the graft
+    entry's in tests/test_torch_graft_entry.py);
   - no command the package starts runs ``-m sieve``: a spawned process is
     ``-m sieve_torch``;
   - asking for the card where there is none raises a clear error instead
@@ -139,6 +142,11 @@ def test_run_loads_no_jax_and_no_sieve():
             "sieve_torch.tools.check_event_schema", "sieve_torch.tools.check_wire_ops",
             "sieve_torch.tools.check_all", "sieve_torch.tools.service_smoke",
             "sieve_torch.tools.chaos_smoke", "sieve_torch.tools.store_smoke",
+            "sieve_torch.tools.failover_smoke", "sieve_torch.tools.shard_smoke",
+            "sieve_torch.tools.observe_smoke", "sieve_torch.tools.profile_smoke",
+            "sieve_torch.tools.fleet_top", "sieve_torch.tools.fleet_debug",
+            "sieve_torch.tools.fleet_profile", "sieve_torch.tools.autotune_kernel",
+            "sieve_torch.graft_entry",
             } <= set(got["modules"])
     loaded = [m for m in got["after"] if _forbidden(m)]
     assert not loaded, f"the port loaded {loaded}"
@@ -367,7 +375,7 @@ def test_smokes_load_no_jax_and_no_sieve(smoke, tmp_path):
     got = _tool_probe(f"sieve_torch.tools.{smoke}", "--device", "cpu",
                       "--keep", str(tmp_path / "work"), timeout=300,
                       OMP_NUM_THREADS="1")
-    assert got["rc"] == 0
+    assert got["rc"] == 0, got["out"][-2000:]
     assert got["out"].splitlines()[-1] == f"{smoke.upper()}_OK"
     loaded = [m for m in got["after"] if _forbidden(m)]
     assert not loaded, f"{smoke} loaded {loaded}"

@@ -27,8 +27,9 @@ propagation, drain, ``svc_shard_down``, failover, the health and stats
 key schemas, the probe-TTL counters, ``--range-lo``, and the router's
 events against the schema. RouterSettings' fields, defaults, ``validate``
 errors and ``from_env`` variables equal the reference's. The reference's
-trace-report and shard-smoke tests need the tools, which the port does
-not have yet.
+trace-report test runs on the port's tool in
+tests/test_torch_trace_report.py, and its shard-smoke test on the port's
+smoke in tests/test_torch_fleet_smokes.py.
 """
 
 import dataclasses
