@@ -66,6 +66,11 @@ sieve_torch.graft_entry`` (the word kernel's entry and the one-shard dry
 run with its checks). The tuned run is a CLI process of this script
 (``chip_smoke.py --cli <CLI arguments>``), which reports its own kernel
 launches.
+Phase ``bench`` runs ``python -m sieve_torch.bench`` on the card in a
+process of this script (``chip_smoke.py --bench``), which reports its own
+kernel launches: every parity assert of the bench, its 18 metric lines
+each once, its launches exactly as counted from its code, and the lines
+through the port's ``bench_compare``, whose absolute budgets are printed.
 Each ``--other DIR`` names a checkout of another commit
 (the parent, unpacked with ``git archive``) or a variant of these
 sources, whose kernels are built too and timed in turns with these in
@@ -77,12 +82,13 @@ line:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
-The words, cluster, multihost, service, serve, fabric, profile, gates and
-fleet phases print their summaries as ``[words] {...}``, ``[cluster]
-{...}``, ``[multihost] {...}``, ``[service] {...}``, ``[serve] {...}``,
-``[fabric] {...}``, ``[profile] {...}``, ``[gates] {...}`` and ``[fleet]
-{...}`` lines before those three. Exits non-zero when torch sees no CUDA device, and when run
-outside a checkout of the repository.
+The words, cluster, multihost, service, serve, fabric, profile, gates,
+fleet and bench phases print their summaries as ``[words] {...}``,
+``[cluster] {...}``, ``[multihost] {...}``, ``[service] {...}``, ``[serve]
+{...}``, ``[fabric] {...}``, ``[profile] {...}``, ``[gates] {...}``,
+``[fleet] {...}`` and ``[bench] {...}`` lines before those three. Exits
+non-zero when torch sees no CUDA device, and when run outside a checkout
+of the repository.
 """
 
 from __future__ import annotations
@@ -2902,6 +2908,89 @@ def phase_fleet(device="cuda", sizes=None) -> dict:
     return out
 
 
+# the 18 lines ``python -m sieve_torch.bench`` prints, each exactly once
+BENCH_METRICS = (
+    "sieve_throughput_pi_1e9_odds_cuda", "sieve_throughput_depth_1e12_odds_cuda",
+    "host_prepare_throughput_odds_cuda", "fused_reduction_hbm_traffic_ratio",
+    "service_query_latency_p95_ms", "service_hot_qps", "service_pipeline_qps",
+    "service_hot_qps_binary", "service_wire_bytes_per_member",
+    "service_hot_qps_scaling", "service_hot_under_flood_ms_p95",
+    "router_query_latency_p95_ms", "service_trace_overhead_ratio",
+    "service_recorder_overhead_ratio", "service_profiler_overhead_ratio",
+    "service_lock_debug_overhead_ratio", "service_observer_overhead_ratio",
+    "service_cold_drain_throughput",
+)
+# the bench process's own launches, counted from its code: the fused kernel
+# twice on line 1 (a warm and a timed n=1e9 run, one segment each), four
+# times on line 2 (the depth segment's first run and three timed reruns)
+# and once on line 4; the split kernel once (line 4's parity); the word
+# kernel once per round of line 3's n=3e7 run in 6 rounds. The service
+# lines sieve on the host (cpu-numpy ledgers), and line 9's smoke is a
+# process of its own that counts its batched launch itself.
+BENCH_LAUNCHES = {"fused": 7, "split": 1, "words": 6, "words_batch": 0}
+
+
+def bench_child() -> int:
+    """``chip_smoke.py --bench``: ``sieve_torch.bench.main`` on the card in
+    this process, then one JSON line with its exit code and this process's
+    kernel launches."""
+    from sieve_torch import bench
+
+    mark_fused.launches = mark_split.launches = 0
+    _reset_calls()
+    rc = bench.main(["--device", "cuda"])
+    print(json.dumps({"rc": rc, "fused": mark_fused.launches,
+                      "split": mark_split.launches,
+                      "words": word_mark.mark_words.cuda_calls,
+                      "words_batch": word_mark.mark_words_batch.cuda_calls}),
+          flush=True)
+    return rc
+
+
+def phase_bench() -> dict:
+    """``python -m sieve_torch.bench`` on the card in a fresh process of
+    this script (``chip_smoke.py --bench``): exit 0, each of the 18 metric
+    lines exactly once (every parity assert of the bench passed), the
+    process's own launches exactly ``BENCH_LAUNCHES``, and the cold drain
+    one batched launch; then the lines through the port's bench_compare
+    against an empty previous round, whose absolute budgets are printed
+    (a tripped budget is a finding, not a failure: this round sets no
+    speed target)."""
+    from sieve_torch.tools.bench_compare import compare, extract_metrics
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--bench"],
+                          cwd=Path(__file__).resolve().parent, capture_output=True,
+                          text=True, timeout=900)
+    sec = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"sieve_torch.bench exited {proc.returncode}:\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    docs = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    counts, lines = docs[-1], [d for d in docs[:-1] if "metric" in d]
+    names = [d["metric"] for d in lines]
+    if sorted(names) != sorted(BENCH_METRICS) or len(lines) != len(docs) - 1:
+        raise AssertionError(f"bench lines {names}, want each of {BENCH_METRICS} once")
+    for d in lines:
+        log("bench", "    " + json.dumps(d))
+    got = {k: counts[k] for k in BENCH_LAUNCHES}
+    if got != BENCH_LAUNCHES:
+        raise AssertionError(f"bench launches {got}, expected {BENCH_LAUNCHES}")
+    by_name = {d["metric"]: d for d in lines}
+    drain = by_name["service_cold_drain_throughput"]
+    if (drain["spmd_launches"], drain["device"]) != (1, "cuda"):
+        raise AssertionError(f"cold drain: {drain}")
+    report, budgets = compare({}, extract_metrics({"tail": proc.stdout}), 0.10)
+    for line in report:
+        log("bench", "bench_compare:" + line)
+    for b in budgets:
+        log("bench", f"bench_compare: budget tripped: {b}")
+    log("bench", f"python -m sieve_torch.bench: exit 0 in {sec:.1f} s, 18 lines; "
+                 f"launches {got} (as counted from its code)")
+    return {"seconds": sec, "launches": got, "budgets_tripped": budgets,
+            "values": {k: by_name[k]["value"] for k in BENCH_METRICS}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, action="append", default=[],
@@ -2982,6 +3071,10 @@ def main(argv=None) -> int:
                     f"the graft dry run {fleet['graft_entry']['launches']['fused']}), "
                     f"mark_split {fleet['split_launches']} (the graft dry run's parity "
                     "run); the sweep's trials are measurement launches")
+    bench = timed("bench", phase_bench)
+    log("launches", f"bench: mark_fused {bench['launches']['fused']}, mark_split "
+                    f"{bench['launches']['split']}, mark_words "
+                    f"{bench['launches']['words']} in the bench process")
     log("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s: "
                 + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
     wt = words["times"]
@@ -3004,6 +3097,7 @@ def main(argv=None) -> int:
     print("[profile] " + json.dumps(profile))
     print("[gates] " + json.dumps(gates))
     print("[fleet] " + json.dumps(fleet))
+    print("[bench] " + json.dumps(bench))
     kernels = [{
         "name": "fused_mark",
         "route": "cuda",
@@ -3013,7 +3107,7 @@ def main(argv=None) -> int:
                      + multihost["launches"] + service["launches"]
                      + serve["launches"] + fabric["launches"]
                      + profile["launches"]["fused"] + gates["launches"]
-                     + fleet["launches"]),
+                     + fleet["launches"] + bench["launches"]["fused"]),
         "max_abs_err": worst,
         "ms": times["counting"]["ms"],
         "plain_ms": times["counting"]["plain_ms"],
@@ -3026,7 +3120,7 @@ def main(argv=None) -> int:
         "source": "sieve_torch/kernels/csrc/fused_mark.cu",
         "replaces": "sieve/kernels/pallas_mark.py:609",
         "launches": (rounds["launches"]["split"] + profile["launches"]["split"]
-                     + fleet["split_launches"]),
+                     + fleet["split_launches"] + bench["launches"]["split"]),
         "max_abs_err": worst_split,
         "ms": times["split"]["ms"],
         "plain_ms": times["split"]["plain_ms"],
@@ -3045,4 +3139,6 @@ def main(argv=None) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cli"]:
         sys.exit(cli_main(sys.argv[2:]))
+    if sys.argv[1:] == ["--bench"]:
+        sys.exit(bench_child())
     sys.exit(main())

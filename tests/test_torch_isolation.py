@@ -381,6 +381,22 @@ def test_smokes_load_no_jax_and_no_sieve(smoke, tmp_path):
     assert not loaded, f"{smoke} loaded {loaded}"
 
 
+@pytest.mark.parametrize("module, argv, first, torch_free", [
+    ("sieve_torch.bench", ["--help"], "usage: python -m sieve_torch.bench", False),
+    ("sieve_torch.tools.bench_compare", [], "bench_compare: round r", True),
+])
+def test_bench_modules_load_no_jax_no_sieve_no_tools(module, argv, first, torch_free):
+    """The benchmark and its gate, each run as ``python -m`` in a fresh
+    interpreter, load none of ``jax``, ``sieve`` or ``tools`` (the gate,
+    host code, no torch either)."""
+    got = _tool_probe(module, *argv)
+    assert got["rc"] == 0
+    assert got["out"].startswith(first)
+    loaded = [m for m in got["after"] if _forbidden(m)
+              or (torch_free and (m == "torch" or m.startswith("torch.")))]
+    assert not loaded, f"{module} loaded {loaded}"
+
+
 def test_cuda_device_without_card_raises(monkeypatch, capsys):
     """device='cuda' (the default) never falls back to the CPU."""
     from sieve_torch.cli import main
