@@ -54,13 +54,14 @@ class CudaWorker(SieveWorker):
         self._cpu_fallback = CpuNumpyWorker(config)
         self._chains: dict[int, CudaChain] = {}  # keyed by padded width
         self._chain_seeds: np.ndarray | None = None
-        # device mark+reduce time, reported through SieveResult.host_phases
+        # device mark+reduce time (the ``segment.device`` spans), reported
+        # through SieveResult.host_phases
         self.reduce_seconds: dict[str, float] = {}
         # segments under MIN_DEVICE_BITS candidate bits, answered on the
         # host as the reference's device backends do: no kernel launch
         self.host_segments = 0
 
-    def _prepare(self, lo: int, hi: int, seeds: np.ndarray):
+    def _prepare(self, lo: int, hi: int, seeds: np.ndarray, seg_id: int):
         """Incremental prepare: a run's equal-sized segments share one
         chain, so residues advance O(1) per seed."""
         if self._chain_seeds is not seeds:
@@ -70,10 +71,11 @@ class CudaWorker(SieveWorker):
         wpad = _padded_words(get_layout(packing).nbits(lo, hi))
         chain = self._chains.get(wpad)
         if chain is None:
-            chain = self._chains[wpad] = CudaChain(
-                packing, seeds, wpad, pair_gap=self.config.pair_gap or 2,
-            )
-        seg = chain.prepare(lo, hi)
+            with trace.span("prepare.chain", backend=self.name, seg=seg_id):
+                chain = self._chains[wpad] = CudaChain(
+                    packing, seeds, wpad, pair_gap=self.config.pair_gap or 2,
+                )
+        seg = chain.prepare(lo, hi, seg_id)
         agg: dict[str, float] = {}
         for c in self._chains.values():
             for k, v in c.phase_seconds.items():
@@ -91,30 +93,29 @@ class CudaWorker(SieveWorker):
             self.host_segments += 1
             return self._cpu_fallback.process_segment(lo, hi, seed_primes, seg_id)
         with trace.span("segment.prepare", backend=self.name, seg=seg_id):
-            seg = self._prepare(lo, hi, seed_primes)
+            seg = self._prepare(lo, hi, seed_primes, seg_id)
         self.reduction_mode = "fused" if fused_enabled() else "split"
         key = "postlude_" + self.reduction_mode
-        t1 = time.perf_counter()
-        with trace.span("segment.device", backend=self.name, seg=seg_id, mode=key):
+        with trace.span("segment.device", backend=self.name, seg=seg_id,
+                        mode=key) as sp:
             count, pairs, first_word, last_word = mark_cuda(
                 seg, pair_kind(self.config), device=self.device
             )
-        self.reduce_seconds[key] = (
-            self.reduce_seconds.get(key, 0.0) + time.perf_counter() - t1
-        )
-        count += layout.extras_in(lo, hi)
-        twin_count = (
-            pairs + layout.extra_pairs(lo, hi, self.config.pair_gap or 2)
-            if self.config.twins else 0
-        )
-        return SegmentResult(
-            seg_id=seg_id,
-            lo=lo,
-            hi=hi,
-            count=count,
-            twin_count=twin_count,
-            first_word=first_word,
-            last_word=last_word,
-            nbits=nbits,
-            elapsed_s=time.perf_counter() - t0,
-        )
+        self.reduce_seconds[key] = self.reduce_seconds.get(key, 0.0) + sp.elapsed
+        with trace.span("segment.result", seg=seg_id):
+            count += layout.extras_in(lo, hi)
+            twin_count = (
+                pairs + layout.extra_pairs(lo, hi, self.config.pair_gap or 2)
+                if self.config.twins else 0
+            )
+            return SegmentResult(
+                seg_id=seg_id,
+                lo=lo,
+                hi=hi,
+                count=count,
+                twin_count=twin_count,
+                first_word=first_word,
+                last_word=last_word,
+                nbits=nbits,
+                elapsed_s=time.perf_counter() - t0,
+            )

@@ -79,4 +79,7 @@ class MeshWorker(TorchWorker):
                 for d, dev in enumerate(self.shards)
             ]
             self.launches += 1
-            return torch.cat([o.cpu() for o in outs]).numpy()[:b]
+            with trace.span("words.fetch", batch=b):
+                packed = torch.cat([o.cpu() for o in outs]).numpy()[:b]
+            trace.flush_device_spans()
+            return packed

@@ -73,19 +73,21 @@ class TorchWorker(SieveWorker):
         self._chain: TieredChain | None = None
         self._chain_seeds: np.ndarray | None = None
 
-    def _prepare(self, packing: str, lo: int, hi: int, seeds: np.ndarray):
+    def _prepare(self, packing: str, lo: int, hi: int, seeds: np.ndarray,
+                 seg_id: int):
         """Incremental prepare: segments of one run arrive in order, so
         residues advance O(1) per seed (exact for any jump)."""
         if self._chain is None or self._chain_seeds is not seeds:
-            self._chain = TieredChain(
-                packing, seeds,
-                tier1_max=TIER1_MAX, spec_block=SPEC_BLOCK,
-                word_bucket=WORD_BUCKET,
-                pair_gap=self.config.pair_gap or 2,
-            )
+            with trace.span("prepare.chain", backend=self.name, seg=seg_id):
+                self._chain = TieredChain(
+                    packing, seeds,
+                    tier1_max=TIER1_MAX, spec_block=SPEC_BLOCK,
+                    word_bucket=WORD_BUCKET,
+                    pair_gap=self.config.pair_gap or 2,
+                )
             self._chain_seeds = seeds
             self.phase_seconds = self._chain.phase_seconds
-        ts = self._chain.prepare(lo, hi)
+        ts = self._chain.prepare(lo, hi, seg_id)
         return ts.with_spec_count(max(SPEC_BLOCK, next_pow2(ts.m2.size)))
 
     def _result(self, seg_id: int, lo: int, hi: int, nbits: int, row,
@@ -117,23 +119,32 @@ class TorchWorker(SieveWorker):
         if nbits < MIN_DEVICE_BITS:
             return self._cpu_fallback.process_segment(lo, hi, seed_primes, seg_id)
         with trace.span("segment.prepare", backend=self.name, seg=seg_id):
-            ts = self._prepare(packing, lo, hi, seed_primes)
+            ts = self._prepare(packing, lo, hi, seed_primes, seg_id)
         with trace.span("segment.device", backend=self.name, seg=seg_id):
             packed = mark_words(
                 ts.Wpad, pair_kind(self.config), ts.periods, nbits, ts.patterns,
                 ts.m2, ts.r2, ts.K2, ts.rcp2, ts.act2, ts.corr_idx, ts.corr_mask,
                 ts.pair_mask, device=self.device,
-            ).cpu()  # one int64[4] fetch: count, pairs, first32, last32
-        return self._result(seg_id, lo, hi, nbits, packed.tolist(), t0)
+            )
+            with trace.span("words.fetch", seg=seg_id):
+                # one int64[4] fetch: count, pairs, first32, last32
+                packed = packed.cpu()
+            trace.flush_device_spans()
+        with trace.span("segment.result", seg=seg_id):
+            return self._result(seg_id, lo, hi, nbits, packed.tolist(), t0)
 
     def _run_group(self, Wpad: int, periods: tuple, c_pad: int,
                    rows: list[TieredSegment]) -> np.ndarray:
         """One shape group's rows through one batched call: [B, 4]."""
         with trace.span("segment.device", backend=self.name, batch=len(rows)):
-            return mark_words_batch(
+            packed = mark_words_batch(
                 Wpad, pair_kind(self.config), periods,
                 *stack_tables(rows, periods, c_pad), device=self.device,
-            ).cpu().numpy()
+            )
+            with trace.span("words.fetch", batch=len(rows)):
+                packed = packed.cpu().numpy()
+            trace.flush_device_spans()
+            return packed
 
     def process_segments(
         self,
@@ -166,7 +177,7 @@ class TorchWorker(SieveWorker):
                 continue
             with trace.span("segment.prepare", backend=self.name,
                             seg=seg_ids[pos]):
-                ts = self._prepare(packing, lo, hi, seed_primes)
+                ts = self._prepare(packing, lo, hi, seed_primes, seg_ids[pos])
             c_pad = max(1, next_pow2(ts.corr_idx.size))
             key = (ts.Wpad, ts.periods, ts.m2.size, c_pad)
             groups.setdefault(key, []).append((pos, ts, t0))

@@ -205,7 +205,8 @@ def _profiler(config: SieveConfig):
     (one ``<host>_<pid>.<ms>.pt.trace.json`` per process, so ranks do not
     collide). Other backends ignore the flag, as the reference's do. A
     profiler that cannot trace the card raises instead of tracing the
-    host alone."""
+    host alone. While it runs, the port's spans are mirrored into it as
+    record_function ranges, so each launch shows beneath its span."""
     if not config.profile_dir or config.backend not in ("cuda", "torch"):
         return contextlib.nullcontext()
     import torch
@@ -221,8 +222,21 @@ def _profiler(config: SieveConfig):
             raise RuntimeError("--profile-dir: torch.profiler cannot trace "
                                "CUDA activity in this build (no CUPTI)")
         activities.append(ProfilerActivity.CUDA)
-    return profile(activities=activities,
-                   on_trace_ready=tensorboard_trace_handler(config.profile_dir))
+    return _mirrored(profile(activities=activities,
+                             on_trace_ready=tensorboard_trace_handler(config.profile_dir)))
+
+
+@contextlib.contextmanager
+def _mirrored(prof):
+    """``prof``'s session with the port's spans mirrored into it."""
+    from sieve_torch import trace
+
+    with prof:
+        trace.mirror_to_profiler(True)
+        try:
+            yield prof
+        finally:
+            trace.mirror_to_profiler(False)
 
 
 def _run(args: argparse.Namespace, config: SieveConfig) -> int:

@@ -8,7 +8,8 @@ checkpoint dir every finished segment is recorded in the ledger
 (sieve_torch/checkpoint.py), and ``resume`` skips the ones it holds.
 The run emits the reference's metrics events (one per segment, the
 summary, resume and ledger salvage; sieve_torch/metrics.py) and its
-``run.seed``, ``run.plan``, ``segment.process`` and ``run.merge`` spans
+``run.seed``, ``run.plan``, ``run.worker``, ``segment.process``,
+``segment.record``, ``run.merge`` and ``run.summary`` spans
 (sieve_torch/trace.py).
 """
 
@@ -142,7 +143,8 @@ class Coordinator:
         if ledger is not None and cfg.resume:
             done = ledger.completed()
             self.metrics.event("resume", restored=len(done))
-        worker = self._worker_factory(cfg)
+        with trace.span("run.worker", backend=cfg.backend):
+            worker = self._worker_factory(cfg)
         try:
             for seg in segs:
                 if seg.seg_id in done:
@@ -150,29 +152,31 @@ class Coordinator:
                 with trace.span("segment.process", seg=seg.seg_id,
                                 backend=cfg.backend):
                     res = worker.process_segment(seg.lo, seg.hi, seeds, seg.seg_id)
-                done[seg.seg_id] = res
-                if ledger is not None:
-                    ledger.record(res)
-                self.metrics.segment(res)
+                with trace.span("segment.record", seg=seg.seg_id):
+                    done[seg.seg_id] = res
+                    if ledger is not None:
+                        ledger.record(res)
+                    self.metrics.segment(res)
         finally:
             worker.close()
         results = [done[s.seg_id] for s in segs]
         with trace.span("run.merge"):
             pi, pairs = merge_results(cfg, results)
         elapsed = time.perf_counter() - t0
-        result = SieveResult(
-            n=cfg.n,
-            pi=pi,
-            twin_pairs=pairs,
-            backend=cfg.backend,
-            packing=cfg.packing,
-            n_segments=len(segs),
-            elapsed_s=elapsed,
-            values_per_sec=(cfg.n - 1) / elapsed if elapsed > 0 else float("inf"),
-            segments=results,
-            host_phases=_host_phases(worker),
-        )
-        self.metrics.run_summary(result)
+        with trace.span("run.summary"):
+            result = SieveResult(
+                n=cfg.n,
+                pi=pi,
+                twin_pairs=pairs,
+                backend=cfg.backend,
+                packing=cfg.packing,
+                n_segments=len(segs),
+                elapsed_s=elapsed,
+                values_per_sec=(cfg.n - 1) / elapsed if elapsed > 0 else float("inf"),
+                segments=results,
+                host_phases=_host_phases(worker),
+            )
+            self.metrics.run_summary(result)
         return result
 
 

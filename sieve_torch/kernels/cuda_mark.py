@@ -50,13 +50,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from sieve_torch import env
+from sieve_torch import env, trace
 from sieve_torch.bitset import get_layout
 from sieve_torch.kernels.pairs import PAIR_SHIFT
 from sieve_torch.kernels.reduce import _postlude, pack4, popcount
@@ -242,7 +241,8 @@ class CudaChain:
     mask. Output equals from-scratch ``prepare_cuda(..., wpad)``.
 
     ``phase_seconds`` accumulates host time per phase (residue / group /
-    flat / corrections).
+    flat / corrections), read from the spans ``prepare.residue``,
+    ``prepare.group``, ``prepare.flat`` and ``prepare.corrections``.
     """
 
     def __init__(self, packing: str, seeds: np.ndarray, wpad: int,
@@ -309,38 +309,37 @@ class CudaChain:
         arrs[1] = rK
         return tuple(arrs)
 
-    def prepare(self, lo: int, hi: int) -> CudaSegment:
+    def prepare(self, lo: int, hi: int, seg_id: int | None = None) -> CudaSegment:
         nbits = self.layout.nbits(lo, hi)
         if self.Wpad < _padded_words(nbits):
             raise ValueError(f"wpad {self.Wpad} < segment's {_padded_words(nbits)}")
-        t0 = time.perf_counter()
-        r = self._residues(lo)
-        t1 = time.perf_counter()
-        A, B, C = (self._with_residue(g, r[g["mask"]]) for g in self._groups)
-        r_d = r[self._gd]
-        sel = r_d < nbits  # zero-crossing pruning (see prepare_cuda)
-        S = int(np.count_nonzero(sel))
-        P = max(D_LANES, -(-S // D_LANES) * D_LANES)
-        out_m = np.full(P, 1 << 29, np.int32)
-        out_rK = np.zeros(P, np.int32)
-        rcp = np.full(P, np.float32(1.0 / (1 << 29)), np.float32)
-        act = np.zeros(P, np.uint32)
-        out_m[:S] = self._d_m[sel]
-        out_rK[:S] = self._d_Km[sel] + r_d[sel]
-        rcp[:S] = self._d_rcp[sel]
-        act[:S] = 0xFFFFFFFF
-        D = tuple(a.reshape(-1, D_LANES) for a in (out_m, out_rK, rcp, act))
-        t2 = time.perf_counter()
-        fi, fm = flat_crossings(self._f_m, r[self._gf], nbits)
-        t3 = time.perf_counter()
-        ci, cm = _corrections_padded(self.packing, lo, hi, self.seeds)
-        pair_mask = _pair_mask(self.packing, lo, self.pair_gap)
-        t4 = time.perf_counter()
         ph = self.phase_seconds
-        ph["residue"] += t1 - t0
-        ph["group"] += t2 - t1
-        ph["flat"] += t3 - t2
-        ph["corrections"] += t4 - t3
+        with trace.span("prepare.residue", seg=seg_id) as sp:
+            r = self._residues(lo)
+        ph["residue"] += sp.elapsed
+        with trace.span("prepare.group", seg=seg_id) as sp:
+            A, B, C = (self._with_residue(g, r[g["mask"]]) for g in self._groups)
+            r_d = r[self._gd]
+            sel = r_d < nbits  # zero-crossing pruning (see prepare_cuda)
+            S = int(np.count_nonzero(sel))
+            P = max(D_LANES, -(-S // D_LANES) * D_LANES)
+            out_m = np.full(P, 1 << 29, np.int32)
+            out_rK = np.zeros(P, np.int32)
+            rcp = np.full(P, np.float32(1.0 / (1 << 29)), np.float32)
+            act = np.zeros(P, np.uint32)
+            out_m[:S] = self._d_m[sel]
+            out_rK[:S] = self._d_Km[sel] + r_d[sel]
+            rcp[:S] = self._d_rcp[sel]
+            act[:S] = 0xFFFFFFFF
+            D = tuple(a.reshape(-1, D_LANES) for a in (out_m, out_rK, rcp, act))
+        ph["group"] += sp.elapsed
+        with trace.span("prepare.flat", seg=seg_id) as sp:
+            fi, fm = flat_crossings(self._f_m, r[self._gf], nbits)
+        ph["flat"] += sp.elapsed
+        with trace.span("prepare.corrections", seg=seg_id) as sp:
+            ci, cm = _corrections_padded(self.packing, lo, hi, self.seeds)
+            pair_mask = _pair_mask(self.packing, lo, self.pair_gap)
+        ph["corrections"] += sp.elapsed
         self.segments_prepared += 1
         return CudaSegment(
             nbits=nbits,
@@ -438,24 +437,30 @@ class FusedInputs:
 
 
 def fused_inputs(seg: CudaSegment, device) -> FusedInputs:
-    """Move one segment's kernel inputs to ``device``."""
+    """Move one segment's kernel inputs to ``device``: staged into one
+    buffer (span ``fused.stage``), pinned on the way to a card
+    (``fused.pin``), and copied (``fused.copy``)."""
     if seg.Wpad % TILE_WORDS or 32 * seg.Wpad >= MAX_BITS:
         raise ValueError(f"Wpad {seg.Wpad} not a tile multiple below 2^25 words")
     if seg.A[0].shape != (1, NA_PAD):
         raise ValueError(f"group A must have {NA_PAD} slots")
-    args = fused_args(seg)
-    parts, spans, off = [], {}, 0
-    for name, i in _KERNEL_ARRAYS:
-        a = np.ascontiguousarray(args[i]).reshape(-1).view(np.int32)
-        spans[name] = (off, a.size)
-        parts.append(a)
-        off += a.size
-    host = torch.from_numpy(np.concatenate(parts))
+    with trace.span("fused.stage"):
+        args = fused_args(seg)
+        parts, spans, off = [], {}, 0
+        for name, i in _KERNEL_ARRAYS:
+            a = np.ascontiguousarray(args[i]).reshape(-1).view(np.int32)
+            spans[name] = (off, a.size)
+            parts.append(a)
+            off += a.size
+        host = torch.from_numpy(np.concatenate(parts))
     if torch.device(device).type == "cuda":
         # pinned, so the copy is queued on the stream and the host goes on
-        host = host.pin_memory()
+        with trace.span("fused.pin"):
+            host = host.pin_memory()
+    with trace.span("fused.copy"):
+        buf = host.to(device, non_blocking=True)
     return FusedInputs(
-        buf=host.to(device, non_blocking=True),
+        buf=buf,
         spans=spans,
         nbits=seg.nbits,
         Wpad=seg.Wpad,
@@ -477,10 +482,16 @@ def mark_fused(seg: CudaSegment, twin_kind: int, need_bits: bool = False,
     On a CUDA device this launches csrc/fused_mark.cu (built on first
     use) and adds one to ``mark_fused.launches``; the inputs go to the
     card in one copy and one uint32[4] comes back. On the CPU it runs the
-    plain version."""
+    plain version. The spans ``fused.launch`` (the enqueue; the plain
+    version) and ``fused.fetch`` (the synchronising read; nearly nothing
+    on the CPU, where the result is on the host) follow ``fused_inputs``'
+    three."""
     x = fused_inputs(seg, device)
     if x.device.type == "cpu":
-        return _fused_plain(x, twin_kind, need_bits)
+        with trace.span("fused.launch"):
+            out = _fused_plain(x, twin_kind, need_bits)
+        with trace.span("fused.fetch"):  # the plain result is host ints
+            return out
     if x.device.type != "cuda":
         raise ValueError(f"mark_fused: unsupported device {x.device}")
     return _fused_launch(x, twin_kind, need_bits)
@@ -541,11 +552,13 @@ def launch_fused(x: FusedInputs, twin_kind: int, need_bits: bool = False):
 
 
 def _fused_launch(x: FusedInputs, twin_kind: int, need_bits: bool):
-    result, words = launch_fused(x, twin_kind, need_bits)
-    res = tuple(int(v) for v in _as_u32(result))  # the one device->host fetch
-    if need_bits:
-        return res, _as_u32(words).reshape(-1, 128)
-    return res
+    with trace.span("fused.launch"):
+        result, words = launch_fused(x, twin_kind, need_bits)
+    with trace.span("fused.fetch"):
+        res = tuple(int(v) for v in _as_u32(result))  # the one device->host fetch
+        if need_bits:
+            return res, _as_u32(words).reshape(-1, 128)
+        return res
 
 
 def fused_reduce(x: FusedInputs, twin_kind: int) -> torch.Tensor:

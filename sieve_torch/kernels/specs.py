@@ -16,10 +16,10 @@ small strides, tier-2 tables for the rest, corrections and the pair mask.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 
+from sieve_torch import trace
 from sieve_torch.bitset import _W30_IDX, WHEEL30_RESIDUES, get_layout
 
 # modular inverses of the units mod 30 (u * inv == 1 mod 30)
@@ -477,7 +477,9 @@ class TieredChain:
     only the residues advance (SpecChain / DeltaModCache) and the
     per-segment pieces are rebuilt: tier-1 patterns, the K2 column for the
     segment's Wpad (cached per Wpad), corrections, pair_mask. Output is
-    identical to from-scratch ``prepare_tiered``."""
+    identical to from-scratch ``prepare_tiered``. ``phase_seconds``
+    accumulates host time per phase, read from the spans
+    ``prepare.residue``, ``prepare.group`` and ``prepare.corrections``."""
 
     def __init__(
         self,
@@ -524,48 +526,46 @@ class TieredChain:
         self._t1_g0 = g0
         return self._t1_r
 
-    def prepare(self, lo: int, hi: int) -> TieredSegment:
-        t0 = time.perf_counter()
-        nbits, r_full, s_full = self._spec.residues(lo, hi)
-        W = -(-nbits // 32)
-        Wpad = -(-(W + 1) // self.word_bucket) * self.word_bucket
-        if Wpad > MAX_WORDS:
-            raise ValueError(
-                f"segment too large for word kernel: {nbits} bits "
-                f"(> {32 * MAX_WORDS}); use more segments/rounds"
-            )
-
-        r1 = self._tier1_residues(lo)
-        t1 = time.perf_counter()
-        periods, patterns = _tier1_patterns(self._t1_m, r1)
-
-        K_all = self._K2_cache.get(Wpad)
-        if K_all is None:
-            K_all = self._K2_cache[Wpad] = -(
-                -32 * Wpad // self._m2_all.astype(np.int64)
-            )
-        live = s_full[self._big_idx] < nbits
-        m2 = self._m2_all[live]
-        S2 = int(m2.size)
-        S2p = max(self.spec_block, -(-S2 // self.spec_block) * self.spec_block)
-        pad = S2p - S2
-        K_pad = -(-32 * Wpad // _PAD_M)
-        m2 = np.concatenate([m2, np.full(pad, _PAD_M, np.int64)])
-        r2 = np.concatenate([r_full[self._big_idx][live], np.zeros(pad, np.int64)])
-        K2 = np.concatenate([K_all[live], np.full(pad, K_pad, np.int64)])
-        rcp2 = np.concatenate(
-            [self._rcp_all[live], np.full(pad, 1.0 / _PAD_M, np.float32)]
-        )
-        act2 = np.concatenate(
-            [np.full(S2, 0xFFFFFFFF, np.uint32), np.zeros(pad, np.uint32)]
-        )
-        t2 = time.perf_counter()
-
-        corr_idx, corr_mask = _corrections(self.packing, lo, hi, self.seeds)
+    def prepare(self, lo: int, hi: int, seg_id: int | None = None) -> TieredSegment:
         ph = self.phase_seconds
-        ph["residue"] += t1 - t0
-        ph["group"] += t2 - t1
-        ph["corrections"] += time.perf_counter() - t2
+        with trace.span("prepare.residue", seg=seg_id) as sp:
+            nbits, r_full, s_full = self._spec.residues(lo, hi)
+            W = -(-nbits // 32)
+            Wpad = -(-(W + 1) // self.word_bucket) * self.word_bucket
+            if Wpad > MAX_WORDS:
+                raise ValueError(
+                    f"segment too large for word kernel: {nbits} bits "
+                    f"(> {32 * MAX_WORDS}); use more segments/rounds"
+                )
+            r1 = self._tier1_residues(lo)
+        ph["residue"] += sp.elapsed
+        with trace.span("prepare.group", seg=seg_id) as sp:
+            periods, patterns = _tier1_patterns(self._t1_m, r1)
+
+            K_all = self._K2_cache.get(Wpad)
+            if K_all is None:
+                K_all = self._K2_cache[Wpad] = -(
+                    -32 * Wpad // self._m2_all.astype(np.int64)
+                )
+            live = s_full[self._big_idx] < nbits
+            m2 = self._m2_all[live]
+            S2 = int(m2.size)
+            S2p = max(self.spec_block, -(-S2 // self.spec_block) * self.spec_block)
+            pad = S2p - S2
+            K_pad = -(-32 * Wpad // _PAD_M)
+            m2 = np.concatenate([m2, np.full(pad, _PAD_M, np.int64)])
+            r2 = np.concatenate([r_full[self._big_idx][live], np.zeros(pad, np.int64)])
+            K2 = np.concatenate([K_all[live], np.full(pad, K_pad, np.int64)])
+            rcp2 = np.concatenate(
+                [self._rcp_all[live], np.full(pad, 1.0 / _PAD_M, np.float32)]
+            )
+            act2 = np.concatenate(
+                [np.full(S2, 0xFFFFFFFF, np.uint32), np.zeros(pad, np.uint32)]
+            )
+        ph["group"] += sp.elapsed
+        with trace.span("prepare.corrections", seg=seg_id) as sp:
+            corr_idx, corr_mask = _corrections(self.packing, lo, hi, self.seeds)
+        ph["corrections"] += sp.elapsed
         self.segments_prepared += 1
         return TieredSegment(
             nbits=nbits,

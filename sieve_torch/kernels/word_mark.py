@@ -24,6 +24,10 @@ re-set the seed primes' own bits. The tail (corrections, validity mask,
 popcount, pair splice, boundary words) is the split postlude's
 ``reduce.reduce_packed``.
 
+The three stages are device spans (``trace.device_span``): ``words.tier1``
+(the fill and the pattern ANDs), ``words.tier2`` (the table upload and
+the spec blocks) and ``words.tail``; they cost nothing with capture off.
+
 Words are marked as int32 holding uint32 bits (bitwise ops do not care
 about the sign; the card moves half the bytes of int64) and handed to the
 tail as int64 holding 0 .. 2^32-1, as reduce.py carries them.
@@ -34,7 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sieve_torch import env
+from sieve_torch import env, trace
 from sieve_torch.kernels.reduce import _U32, pack4, reduce_packed
 from sieve_torch.metrics import registry
 
@@ -78,11 +82,12 @@ def _marked_words(Wpad: int, periods: tuple[int, ...], patterns, m2, r2, act2,
     every row is skipped, and in a block where rows differ the act mask
     clears the padded rows' hits."""
     B = m2.shape[0]
-    words = torch.full((B, Wpad), -1, dtype=torch.int32, device=device)
-    for pat, period in zip(patterns, periods):
-        pat = _to(_i32(pat).reshape(B, period), device)
-        reps = Wpad // period + 1
-        words &= ~pat.repeat(1, reps)[:, :Wpad]
+    with trace.device_span("words.tier1", device):
+        words = torch.full((B, Wpad), -1, dtype=torch.int32, device=device)
+        for pat, period in zip(patterns, periods):
+            pat = _to(_i32(pat).reshape(B, period), device)
+            reps = Wpad // period + 1
+            words &= ~pat.repeat(1, reps)[:, :Wpad]
 
     act = np.asarray(act2).reshape(B, -1) != 0
     keep = np.flatnonzero(act.any(axis=0))  # spec columns live in some row
@@ -91,17 +96,18 @@ def _marked_words(Wpad: int, periods: tuple[int, ...], patterns, m2, r2, act2,
     act = act[:, keep]
     tables = np.stack([np.asarray(m2).reshape(B, -1)[:, keep],
                        np.asarray(r2).reshape(B, -1)[:, keep], act])
-    t_m, t_r, t_a = _to(tables.astype(np.int32), device).unbind(0)
-    w32 = 32 * torch.arange(Wpad, dtype=torch.int32, device=device)
-    live = keep.size
-    for j in range(0, live, SPEC_BLOCK):
-        m = t_m[:, j : j + SPEC_BLOCK, None]
-        r = t_r[:, j : j + SPEC_BLOCK, None]
-        t = torch.remainder(r - w32, m)            # [B, block, Wpad]
-        hit = (t < 32).to(torch.int32) << t.clamp(max=31)
-        if not act[:, j : j + SPEC_BLOCK].all():
-            hit *= t_a[:, j : j + SPEC_BLOCK, None]
-        words &= ~_or_rows(hit)
+    with trace.device_span("words.tier2", device):
+        t_m, t_r, t_a = _to(tables.astype(np.int32), device).unbind(0)
+        w32 = 32 * torch.arange(Wpad, dtype=torch.int32, device=device)
+        live = keep.size
+        for j in range(0, live, SPEC_BLOCK):
+            m = t_m[:, j : j + SPEC_BLOCK, None]
+            r = t_r[:, j : j + SPEC_BLOCK, None]
+            t = torch.remainder(r - w32, m)            # [B, block, Wpad]
+            hit = (t < 32).to(torch.int32) << t.clamp(max=31)
+            if not act[:, j : j + SPEC_BLOCK].all():
+                hit *= t_a[:, j : j + SPEC_BLOCK, None]
+            words &= ~_or_rows(hit)
     return words
 
 
@@ -122,8 +128,9 @@ def mark_words_impl(Wpad: int, twin_kind: int, periods: tuple[int, ...], nbits,
         Wpad, periods, tuple(np.asarray(p)[None] for p in patterns),
         np.asarray(m2)[None], np.asarray(r2)[None], np.asarray(act2)[None],
         device)[0]
-    return _tail(words, int(nbits), twin_kind, int(pair_mask), corr_idx,
-                 corr_mask, device)
+    with trace.device_span("words.tail", device):
+        return _tail(words, int(nbits), twin_kind, int(pair_mask), corr_idx,
+                     corr_mask, device)
 
 
 def _tail(words: torch.Tensor, nbits: int, twin_kind: int, pair_mask: int,
@@ -159,11 +166,12 @@ def mark_words_batch(Wpad, twin_kind, periods, nbits, patterns, m2, r2, K2, rcp2
     call on a CUDA device adds one to ``mark_words_batch.cuda_calls``."""
     _count(mark_words_batch, device)
     words = _marked_words(Wpad, periods, patterns, m2, r2, act2, device)
-    return torch.stack([
-        pack4(*_tail(words[i], int(nbits[i]), twin_kind, int(pair_mask[i]),
-                     corr_idx[i], corr_mask[i], device))
-        for i in range(words.shape[0])
-    ])
+    with trace.device_span("words.tail", device, batch=words.shape[0]):
+        return torch.stack([
+            pack4(*_tail(words[i], int(nbits[i]), twin_kind, int(pair_mask[i]),
+                         corr_idx[i], corr_mask[i], device))
+            for i in range(words.shape[0])
+        ])
 
 
 mark_words_batch.cuda_calls = 0

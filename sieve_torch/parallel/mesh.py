@@ -185,8 +185,9 @@ def _gathered_reader(group, rows: torch.Tensor, gap_ok: np.ndarray, rnd: int):
 
         def read_nccl() -> np.ndarray:
             vals = read()
-            trace.add_span("round.gather", t_issue, start.elapsed_time(end) / 1e3,
-                           round=rnd, clock="device")
+            trace.add_device_span("round.gather", rows.device, t_issue,
+                                  start.elapsed_time(end) / 1e3, round=rnd,
+                                  clock="device")
             return vals
         return read_nccl
     host_rows, ev = _fetch_async(rows)
@@ -314,6 +315,7 @@ def run_mesh(config: SieveConfig) -> SieveResult:
         batch, read, rt0 = pending.pop(0)
         with trace.span("round.drain", round=batch[0].seg_id // ndev):
             vals = read()                   # the round's one fetched vector
+            trace.flush_device_spans()
         total = int(vals[0])
         total_twins = int(vals[1])
         counts = vals[2 : 2 + ndev]
@@ -374,7 +376,7 @@ def run_mesh(config: SieveConfig) -> SieveResult:
         todo,
         make_chain,
         lambda chain, rnd: [
-            chain.prepare(s.lo, s.hi)
+            chain.prepare(s.lo, s.hi, s.seg_id)
             for s in segs[rnd * ndev + first : rnd * ndev + first + nlocal]
         ],
         window,

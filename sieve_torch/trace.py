@@ -20,6 +20,14 @@ one timeline. A cluster worker captures into a bounded drop-oldest ring
 replies; the coordinator rebases them with :class:`ClockAlign` and folds
 them in with ``ingest``, so one ``--trace`` file holds every process.
 
+``device_span`` times the work queued on a device inside it: on a card
+by a pair of CUDA events, turned into a span by ``flush_device_spans``
+after the fetch that waits for them; on the CPU by the host clock. It
+costs nothing while capture is off, and its spans go on a track of
+their own per device (``device_track``), never on the issuing thread's.
+``mirror_to_profiler`` makes every span a ``torch.profiler``
+record_function range too, for an operator's profiler session.
+
 For the service plane the tracer also keeps each thread's open-span
 stack (``active_label``, the profiler's span tag), a second bounded ring
 of request-scoped spans (those whose args carry a ``ctx``) that the
@@ -42,10 +50,76 @@ from sieve_torch.analysis.lockdebug import named_lock
 # one monotonic epoch for the whole process
 _EPOCH = time.perf_counter()
 
+# every captured event carries the process id: read once, and again in a
+# forked child (getpid is a system call: ~23 us each under gVisor)
+_PID = os.getpid()
+
+
+def _refresh_pid() -> None:
+    global _PID
+    _PID = os.getpid()
+
+
+os.register_at_fork(after_in_child=_refresh_pid)
+
 
 def now_s() -> float:
     """Seconds since the process trace epoch (monotonic)."""
     return time.perf_counter() - _EPOCH
+
+
+# While an operator's torch.profiler session runs (the CLI's
+# ``--profile-dir``), every span is also entered as a record_function
+# range, so the profile shows the port's spans on the kernels' own clock.
+# None (the default) mirrors nothing; only ``mirror_to_profiler`` sets it.
+_MIRROR = None
+
+
+def mirror_to_profiler(on: bool) -> None:
+    """Mirror every span into torch.profiler as a record_function range
+    (``on``), or stop. Set only around a profiler session that records
+    host activity; a profiler of the card alone must never see them."""
+    global _MIRROR
+    if on:
+        from torch.profiler import record_function
+
+        _MIRROR = record_function
+    else:
+        _MIRROR = None
+
+
+# Device spans have tracks of their own in the capture, one per device,
+# on fixed tids that no thread has (thread idents are addresses): the CPU
+# on DEVICE_TID, card i on DEVICE_TID + 1 + i.
+DEVICE_TID = 9000
+
+
+def device_track(device) -> tuple[int, str]:
+    """The (tid, track name) of a device's spans, e.g. ``cuda:0 (events)``."""
+    dev = str(device)
+    if dev.startswith("cuda"):
+        index = int(dev.partition(":")[2] or _current_card())
+        return DEVICE_TID + 1 + index, f"cuda:{index} (events)"
+    return DEVICE_TID, "cpu (events)"
+
+
+def _current_card() -> int:
+    import torch
+
+    return torch.cuda.current_device()
+
+
+def _cuda_event():
+    """A timing CUDA event (a stub in tests)."""
+    import torch
+
+    return torch.cuda.Event(enable_timing=True)
+
+
+def _current_stream(device):
+    import torch
+
+    return torch.cuda.current_stream(device)
 
 
 # Per-thread open-span stacks, the profiler's span tag: each thread only
@@ -80,9 +154,11 @@ def _ex_root(ctx: str) -> str:
 
 class Span:
     """Context manager for one timed span; ``elapsed`` (seconds) is valid
-    after ``__exit__``."""
+    after ``__exit__``. While an operator's profiler session mirrors the
+    port's spans (:func:`mirror_to_profiler`), the span is also a
+    ``torch.profiler.record_function`` range around the timed interval."""
 
-    __slots__ = ("_tracer", "name", "args", "t0", "elapsed")
+    __slots__ = ("_tracer", "name", "args", "t0", "elapsed", "_stack", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, args: dict | None):
         self._tracer = tracer
@@ -96,17 +172,76 @@ class Span:
         if stack is None:
             stack = _ACTIVE_SPANS[tid] = []
         stack.append(self.name)
+        self._stack = stack
+        mirror = _MIRROR
+        self._range = None if mirror is None else mirror(self.name).__enter__()
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> bool:
         t1 = time.perf_counter()
         self.elapsed = t1 - self.t0
-        stack = _ACTIVE_SPANS.get(threading.get_ident())
-        if stack:
-            stack.pop()
+        if self._stack:
+            self._stack.pop()
         self._tracer._record(self.name, self.t0 - _EPOCH, t1 - _EPOCH, self.args)
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
         return False
+
+
+class DeviceSpan:
+    """One :meth:`Tracer.device_span` with capture or the mirror on."""
+
+    __slots__ = ("_tracer", "name", "device", "args", "_on_card", "_start",
+                 "_t0", "_range")
+
+    def __init__(self, tracer: "Tracer", name: str, device, args: dict | None):
+        self._tracer = tracer
+        self.name = name
+        self.device = device
+        self.args = args
+        self._on_card = str(device).startswith("cuda")
+        self._start = self._t0 = None
+
+    def __enter__(self) -> "DeviceSpan":
+        mirror = _MIRROR
+        self._range = None if mirror is None else mirror(self.name).__enter__()
+        if self._tracer.enabled:
+            if self._on_card:
+                self._start = _cuda_event()
+                self._start.record(_current_stream(self.device))
+            else:
+                self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._start is not None:
+            end = _cuda_event()
+            end.record(_current_stream(self.device))
+            self._tracer._pend((self.name, device_track(self.device),
+                                self._start, end, self.args))
+        elif self._t0 is not None:
+            t1 = time.perf_counter()
+            self._tracer._record(self.name, self._t0 - _EPOCH, t1 - _EPOCH,
+                                 self.args, device_track(self.device))
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+        return False
+
+
+class _NoSpan:
+    """The shared do-nothing device span (capture and mirror off)."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NoSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NO_SPAN = _NoSpan()
 
 
 class Tracer:
@@ -137,14 +272,19 @@ class Tracer:
             collections.OrderedDict()  # guard: _lock
         self._ex_count = 0  # guard: _lock
         self._ex_dropped = 0  # guard: _lock
+        # device spans whose CUDA events the card has not passed yet:
+        # (name, track, start event, end event, args)
+        self._device_pending: list[tuple] = []  # guard: _lock
 
     # --- recording -----------------------------------------------------------
 
     def span(self, name: str, **args: Any) -> Span:
         return Span(self, name, args or None)
 
-    def _record(self, name: str, t0: float, t1: float, args: dict | None) -> None:
-        # t0/t1 are epoch-relative seconds (the ``now_s()`` clock)
+    def _record(self, name: str, t0: float, t1: float, args: dict | None,
+                track: tuple[int, str] | None = None) -> None:
+        # t0/t1 are epoch-relative seconds (the ``now_s()`` clock); a
+        # device span names its device's track
         with self._lock:
             tot = self._totals.get(name)
             if tot is None:
@@ -152,7 +292,7 @@ class Tracer:
             tot[0] += t1 - t0
             tot[1] += 1
             if self.enabled:
-                self._append_event(name, t0, t1, args)
+                self._append_event(name, t0, t1, args, track)
             if self._ex_limit and args and "ctx" in args:
                 root = _ex_root(str(args["ctx"]))
                 bucket = self._ex_spans.get(root)
@@ -168,6 +308,52 @@ class Tracer:
         value), e.g. a device-idle window observed rather than entered."""
         self._record(name, t0, t0 + duration_s, args or None)
 
+    def add_device_span(self, name: str, device, t0: float, duration_s: float,
+                        **args: Any) -> None:
+        """Record an interval the device timed (CUDA events) on that
+        device's track; ``t0`` is where it is placed on the :func:`now_s`
+        clock."""
+        self._record(name, t0, t0 + duration_s, args or None, device_track(device))
+
+    def device_span(self, name: str, device, **args: Any):
+        """A span of the work queued on ``device`` inside it, on the
+        device's own track. With capture off it records no event and
+        reads no clock (and, unless the profiler mirror is on, is a shared
+        no-op). With capture on, on a card, it records a pair of timing
+        CUDA events on the current stream, which
+        :meth:`flush_device_spans` turns into a span once the card has
+        passed them; on the CPU, whose ops run as they are issued, it
+        times them with the host clock."""
+        if not self.enabled and _MIRROR is None:
+            return _NO_SPAN
+        return DeviceSpan(self, name, device, args or None)
+
+    def _pend(self, entry: tuple) -> None:
+        with self._lock:
+            self._device_pending.append(entry)
+
+    def flush_device_spans(self) -> None:
+        """Turn every pending device span the card has passed into a span.
+        Called after a synchronising fetch, so a segment's spans are all
+        done. Durations are the events' own; on the host clock each is
+        placed so that the newest on its device ends now."""
+        if not self._device_pending:
+            return
+        with self._lock:
+            pending, self._device_pending = self._device_pending, []
+        done, waiting = [], []
+        for p in pending:
+            (done if p[3].query() else waiting).append(p)
+        if waiting:
+            with self._lock:
+                self._device_pending[:0] = waiting
+        now = now_s()
+        newest = {p[1]: p[3] for p in done}
+        for name, track, start, end, args in done:
+            back = start.elapsed_time(newest[track]) / 1e3
+            t0 = now - back
+            self._record(name, t0, t0 + start.elapsed_time(end) / 1e3, args, track)
+
     def instant(self, name: str, **args: Any) -> None:
         """Zero-duration marker (heartbeats, joins, resume points)."""
         if not self.enabled:
@@ -180,7 +366,7 @@ class Tracer:
                 "ph": "i",
                 "s": "t",
                 "ts": round((time.perf_counter() - _EPOCH) * 1e6, 3),
-                "pid": os.getpid(),
+                "pid": _PID,
                 "tid": threading.get_ident(),
                 **({"args": args} if args else {}),
             })
@@ -204,31 +390,33 @@ class Tracer:
                 "name": name,
                 "ph": "C",
                 "ts": ts,
-                "pid": os.getpid(),
+                "pid": _PID,
                 "tid": threading.get_ident(),
                 "args": {"value": value},
             })
             self._trim()
 
     def _append_event(self, name: str, t0: float, t1: float,
-                      args: dict | None) -> None:
+                      args: dict | None,
+                      track: tuple[int, str] | None = None) -> None:
         # caller holds the lock
-        tid = threading.get_ident()
+        tid = threading.get_ident() if track is None else track[0]
         if tid not in self._tids_named:
             self._tids_named.add(tid)
             self._events.append({
                 "name": "thread_name",
                 "ph": "M",
-                "pid": os.getpid(),
+                "pid": _PID,
                 "tid": tid,
-                "args": {"name": threading.current_thread().name},
+                "args": {"name": threading.current_thread().name
+                         if track is None else track[1]},
             })
         ev = {
             "name": name,
             "ph": "X",
             "ts": round(t0 * 1e6, 3),
             "dur": round((t1 - t0) * 1e6, 3),
-            "pid": os.getpid(),
+            "pid": _PID,
             "tid": tid,
         }
         if args:
@@ -277,6 +465,7 @@ class Tracer:
             self._ex_spans.clear()
             self._ex_count = 0
             self._ex_dropped = 0
+            self._device_pending.clear()
 
     def set_event_limit(self, max_events: int | None) -> None:
         """Bound the capture buffer to ``max_events`` (None = unbounded);
@@ -369,7 +558,7 @@ class Tracer:
         ``ctx_prefix`` (all when None), oldest request first, as complete
         trace events. Non-draining. A full request ctx is one bucket lookup;
         a bare run-id prefix scans the buckets."""
-        pid = os.getpid()
+        pid = _PID
 
         def mat(e: tuple) -> dict:
             name, t0, t1, tid, _ctx, pairs = e
@@ -468,11 +657,24 @@ def get_tracer() -> Tracer:
 
 
 def span(name: str, **args: Any) -> Span:
-    return _TRACER.span(name, **args)
+    return Span(_TRACER, name, args or None)
 
 
 def add_span(name: str, t0: float, duration_s: float, **args: Any) -> None:
     _TRACER.add_span(name, t0, duration_s, **args)
+
+
+def add_device_span(name: str, device, t0: float, duration_s: float,
+                    **args: Any) -> None:
+    _TRACER.add_device_span(name, device, t0, duration_s, **args)
+
+
+def device_span(name: str, device, **args: Any):
+    return _TRACER.device_span(name, device, **args)
+
+
+def flush_device_spans() -> None:
+    _TRACER.flush_device_spans()
 
 
 def instant(name: str, **args: Any) -> None:
