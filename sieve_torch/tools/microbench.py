@@ -2,8 +2,8 @@
 backend's word kernel, torch ops) on one big odds segment, the first
 call's time printed apart from the best of 3 after it. ``--cuda`` runs
 ``mark_cuda`` (the fused Hopper kernel, or the split kernel and its
-postlude under SIEVE_PALLAS_FUSED=0) instead. Tune the word kernel via
-SIEVE_TIER1_MAX / SIEVE_SPEC_BLOCK.
+postlude under SIEVE_PALLAS_FUSED=0) instead. SIEVE_TIER1_MAX moves
+specs between the word kernel's tiers; tier 2's work is its hits.
 
 Usage: python -m sieve_torch.tools.microbench [n] [n_segments] [--cuda]
            [--device D]
@@ -58,9 +58,11 @@ def main(argv: list[str] | None = None) -> int:
             return list(mark_cuda(ts, kind, device=dev))
     else:
         ts = prepare_segment("odds", seg.lo, seg.hi, seeds)
+        hits = word_mark._tier2_plan(32 * ts.Wpad, ts.m2[None], ts.r2[None],
+                                     ts.act2[None], word_mark.TIER2_CHUNK).hits
         print(f"n={n:.0e} segs={a.n_segments} nbits={ts.nbits} Wpad={ts.Wpad} "
               f"tier1={len(ts.periods)} patterns (TIER1_MAX={word_mark.TIER1_MAX}) "
-              f"tier2={ts.m2.size} specs (SPEC_BLOCK={word_mark.SPEC_BLOCK}) "
+              f"tier2={ts.m2.size} specs, {hits} hits "
               f"device={dev}")
 
         def call():

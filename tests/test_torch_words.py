@@ -174,6 +174,142 @@ def test_mark_words_batch_equals_rows():
         np.testing.assert_array_equal(row, _mark(ts, TWIN_KIND["odds"]))
 
 
+# --- tier 2's sparse marking, whole words against the dense formula ---------
+
+def _dense_words(Wpad, periods, patterns, m2, r2, act2):
+    """The word kernel's words by the dense formula, int32 [B, Wpad]: tier
+    1's patterns tiled and ANDed out, then for every live tier-2 spec
+    t = (r - 32w) mod m over every word w, bit t cleared where t < 32."""
+    B = m2.shape[0]
+    words = np.full((B, Wpad), 0xFFFFFFFF, np.uint64)
+    w32 = 32 * np.arange(Wpad, dtype=np.int64)
+    for b in range(B):
+        for pat, period in zip(patterns, periods):
+            tiled = np.tile(pat[b].astype(np.uint32), Wpad // period + 1)[:Wpad]
+            words[b] &= ~tiled.astype(np.uint64)
+        for m, r, a in zip(m2[b], r2[b], act2[b]):
+            if a:
+                t = (int(r) - w32) % int(m)
+                hit = t < 32
+                words[b, hit] &= ~(np.uint64(1) << t[hit].astype(np.uint64))
+    return words.astype(np.uint32).view(np.int32)
+
+
+def _rows(rows):
+    """Stacked (Wpad, periods, patterns, m2, r2, act2) of TieredSegments of
+    one shape."""
+    return (rows[0].Wpad, rows[0].periods,
+            tuple(np.stack([ts.patterns[i] for ts in rows])
+                  for i in range(len(rows[0].periods))),
+            *(np.stack([getattr(ts, f) for ts in rows]) for f in ("m2", "r2", "act2")))
+
+
+def _specs_per_chunk(L, plan):
+    """For each chunk of a one-row plan, the spec columns with a hit in its
+    windows."""
+    start = word_mark._window_starts(plan, word_mark.torch.from_numpy(plan.table))
+    return [set(np.flatnonzero((start[k0:k1] < L).any(dim=0).numpy()).tolist())
+            for k0, k1 in plan.chunks]
+
+
+# chunk 64 (windows of 2,048 bits) and 1000 (16,384 bits): each cuts every
+# spec's hits at its windows' edges, and each chunk holds many specs
+@pytest.mark.parametrize("chunk", [word_mark.TIER2_CHUNK, 1000, 64])
+@pytest.mark.parametrize("packing", PACKINGS)
+def test_marked_words_match_dense_formula(packing, chunk):
+    """Every word of ``_marked_words`` (tiers 1 and 2, before the tail)
+    against the dense formula, single rows, at chunk sizes that cut one
+    spec's hits and that put several specs' hits in one chunk."""
+    segs = MARK_SEGMENTS if chunk == word_mark.TIER2_CHUNK else MARK_SEGMENTS[:3]
+    for lo, hi, n in segs:
+        seeds = ref_seed_primes(math.isqrt(n))
+        ts = specs.prepare_tiered(packing, lo, hi, seeds, **KNOBS)
+        args = _rows([ts])
+        got = word_mark._marked_words(*args, "cpu", chunk=chunk)
+        assert got.dtype == word_mark.torch.int32
+        np.testing.assert_array_equal(got.numpy(), _dense_words(*args),
+                                      err_msg=f"{packing} [{lo}, {hi})")
+    L = 32 * ts.Wpad
+    plan = word_mark._tier2_plan(L, *args[3:], chunk)
+    assert plan.per_window == sum(w * (c1 - c0) for w, c0, c1, _ in plan.groups)
+    assert all((k1 - k0) * plan.per_window <= max(chunk, plan.per_window)
+               for k0, k1 in plan.chunks)
+    assert plan.row_bits >= L and plan.row_bits % 32 == 0
+    held = _specs_per_chunk(L, plan)
+    assert all(len(h) > 1 for h in held)                    # specs share a chunk
+    if chunk < word_mark.TIER2_CHUNK:
+        assert any(len(h & g) for h, g in zip(held, held[1:]))  # a spec cut
+
+
+@pytest.mark.parametrize("chunk", [word_mark.TIER2_CHUNK, 64])
+def test_marked_words_batch_match_dense_formula(chunk):
+    """A batch whose rows differ in live specs (the act mask) and in tier-1
+    patterns: each row's words equal the dense formula's."""
+    seeds = ref_seed_primes(2_000)
+    segs = [(1_000_003, 1_065_539), (3_000_001, 3_065_537), (2, 65_538)]
+    rows = [specs.prepare_tiered("odds", lo, hi, seeds, **KNOBS) for lo, hi in segs]
+    S2 = max(word_mark.next_pow2(r.m2.size) for r in rows)
+    rows = [r.with_spec_count(S2) for r in rows]
+    assert len({int((r.act2 != 0).sum()) for r in rows}) > 1
+    args = _rows(rows)
+    got = word_mark._marked_words(*args, "cpu", chunk=chunk)
+    np.testing.assert_array_equal(got.numpy(), _dense_words(*args))
+
+
+def _edge_tables():
+    """Hand-made tier-2 tables over Wpad = 64 (2,048 bits): r = 0 and
+    r = m - 1 at m = TIER1_MAX + 1, a stride past the row with one hit and
+    one with none (r >= 32 * Wpad), and a row of padding specs only."""
+    m_edge = word_mark.TIER1_MAX + 1
+    live = [(m_edge, 0), (m_edge, m_edge - 1), (97, 0), (2047, 2046), (4099, 5),
+            (4099, 4098)]
+    pad = (1 << 20, 0)
+    m2 = np.array([[m for m, _ in live], [pad[0]] * 6, [m_edge, 131, *[pad[0]] * 4]],
+                  np.int32)
+    r2 = np.array([[r for _, r in live], [pad[1]] * 6, [3, 130, *[0] * 4]], np.int32)
+    act2 = np.array([[0xFFFFFFFF] * 6, [0] * 6, [0xFFFFFFFF] * 2 + [0] * 4], np.uint32)
+    return 64, (), (), m2, r2, act2
+
+
+@pytest.mark.parametrize("chunk", [word_mark.TIER2_CHUNK, 1000, 7, 1])
+def test_marked_words_edges_match_dense_formula(chunk):
+    args = _edge_tables()
+    got = word_mark._marked_words(*args, "cpu", chunk=chunk).numpy()
+    want = _dense_words(*args)
+    np.testing.assert_array_equal(got, want)
+    assert (want[1] == -1).all()                       # padding row unmarked
+    bits = np.unpackbits(got.view(np.uint8), bitorder="little").reshape(3, -1)
+    # r = m - 1's last hit, the one-hit stride's, and none past the row
+    assert bits[0, 64 + 65 * 30] == 0 and bits[0, 5] == 0 and bits[0, 2046] == 0
+
+
+def test_tier2_hits_counter_on_a_card(monkeypatch):
+    """On a card each call adds its hits to ``kernel.mark_words.tier2_hits``:
+    the sum over live specs of ceil((32 * Wpad - r) / m)."""
+    from sieve_torch.metrics import registry
+
+    monkeypatch.setattr(word_mark, "_on_card", lambda device: True)
+    seeds = ref_seed_primes(2_000)
+    rows = [specs.prepare_tiered("odds", lo, hi, seeds, **KNOBS)
+            for lo, hi in [(1_000_003, 1_065_539), (2, 65_538)]]
+    S2 = max(word_mark.next_pow2(r.m2.size) for r in rows)
+    rows = [r.with_spec_count(S2) for r in rows]
+    Wpad, *_, m2, r2, act2 = args = _rows(rows)
+    want = sum(-(-(32 * Wpad - int(r)) // int(m))
+               for m, r, a in zip(m2.ravel(), r2.ravel(), act2.ravel()) if a)
+    counter = registry().counter("kernel.mark_words.tier2_hits")
+    before = counter.value
+    for chunk in (word_mark.TIER2_CHUNK, 64):
+        word_mark._marked_words(*args, "cpu", chunk=chunk)
+        assert counter.value - before == want
+        before = counter.value
+    edge = _edge_tables()
+    word_mark._marked_words(*edge, "cpu")
+    # row 0: (65, 0) 32, (65, 64) 31, (97, 0) 22, (2047, 2046) 1, (4099, 5) 1,
+    # (4099, 4098) 0; row 1 padding only; row 2: (65, 3) 32, (131, 130) 15
+    assert counter.value - before == 32 + 31 + 22 + 1 + 1 + 0 + 32 + 15
+
+
 def _fields(res):
     d = dataclasses.asdict(res)
     d.pop("elapsed_s")
